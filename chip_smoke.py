@@ -1,0 +1,424 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  build    build the CUDA kernels with nvcc from the checkout's sources
+  kernels  each kernel against its plain PyTorch version on the card, at
+           the serving path's shapes and at edge cases; kernel, plain and
+           library times with CUDA events
+  path     qwen3-0.6b at full width, 2 layers, f32: the same seeded weights
+           on the CPU (plain versions) and on the card (kernels); a
+           200-token prompt and 8 teacher-forced decode steps
+  serve    qwen3-0.6b at full width and depth, bf16, seeded weights, behind
+           InferenceEngine with telemetry and mitigation: 16 requests
+Then the per-kernel summary line, the card's name and power limit as
+nvidia-smi gives them, and as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Any failed check raises and the script exits non-zero.  Without a CUDA card,
+or without the package beside it, it exits non-zero and prints no result.
+This script imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import random
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM published peaks (dense): the bound of each kernel
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+REPLACES = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:137",
+    "paged_attention": "src/repro/kernels/paged_attention.py:128",
+}
+REPLACES_FN = {
+    "flash_attention": "src/repro/kernels/flash_attention.py:"
+                       "flash_attention_kernel",
+    "paged_attention": "src/repro/kernels/paged_attention.py:"
+                       "paged_attention_kernel",
+}
+SOURCE = {
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+}
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+# ----------------------------------------------------------------------
+# timing
+# ----------------------------------------------------------------------
+
+class Timer:
+    """Mean time of one call in ms, from CUDA events around each call.
+    With ``flush``, a 64 MiB write between calls evicts the 50 MB L2, so a
+    call that the real path makes on cold data is timed cold."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.scratch = torch.empty(64 << 20, dtype=torch.uint8,
+                                   device="cuda")
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3,
+                 flush: bool = False) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        pairs = []
+        for _ in range(iters):
+            if flush:
+                self.scratch.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            pairs.append((a, b))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+def max_err(torch, got, want, dtype: str) -> float:
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    g, w = got.float(), want.float()
+    tol = TOL[dtype]
+    bad = (g - w).abs() > tol + tol * w.abs()
+    check(not bool(bad.any()),
+          f"kernel disagrees with plain version beyond {tol}: max |d| "
+          f"{float((g - w).abs().max())}")
+    return float((g - w).abs().max())
+
+
+def flash_case(torch, ops, timer, gen, *, b, s, hq, hkv, d, window,
+               dtype, time_it):
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    import torch.nn.functional as F
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+               .to(dt) for h in (hq, hkv, hkv))
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    row = {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d, "window": window,
+           "dtype": dtype, "max_abs_err": max_err(torch, got, want, dtype)}
+    if time_it:
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row["ms"] = timer(lambda: ops.flash_attention(q, k, v, causal=True))
+        row["plain_ms"] = timer(
+            lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        pairs = s * (s + 1) // 2
+        flops = 4.0 * d * hq * b * pairs
+        nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+    return row
+
+
+def paged_case(torch, ops, timer, gen, *, b, page, per_seq, hq, hkv, d,
+               lengths, permute, dtype, time_it):
+    from repro_torch.kernels.paged_attention import paged_attention_plain
+    import torch.nn.functional as F
+    dt = getattr(torch, dtype)
+    n_pages = b * per_seq
+    q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dt)
+    kp, vp = (torch.randn((n_pages, page, hkv, d), generator=gen,
+                          device="cuda").to(dt) for _ in range(2))
+    ids = torch.arange(n_pages, dtype=torch.int32, device="cuda")
+    if permute:
+        ids = ids[torch.randperm(n_pages, generator=gen, device="cuda")]
+    table = ids.view(b, per_seq).contiguous()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = ops.paged_attention(q, kp, vp, table, lens)
+    want = paged_attention_plain(q, kp, vp, table, lens)
+    torch.cuda.synchronize()
+    row = {"b": b, "page": page, "per_seq": per_seq, "hq": hq, "hkv": hkv,
+           "d": d, "lengths": lengths, "permuted": permute, "dtype": dtype,
+           "max_abs_err": max_err(torch, got, want, dtype)}
+    if time_it:
+        # the library yardstick reads the same cache as dense slots
+        kd = kp.view(b, per_seq * page, hkv, d).transpose(1, 2)
+        vd = vp.view(b, per_seq * page, hkv, d).transpose(1, 2)
+        qd = q[:, :, None, :]
+        pos = torch.arange(per_seq * page, device="cuda")
+        mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
+        row["ms"] = timer(lambda: ops.paged_attention(q, kp, vp, table,
+                                                      lens), flush=True)
+        row["plain_ms"] = timer(lambda: paged_attention_plain(
+            q, kp, vp, table, lens), iters=5, flush=True)
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True), flush=True)
+        live = sum(lengths)
+        elt = q.element_size()
+        flops = 4.0 * d * hq * live
+        nbytes = (2 * live * hkv * d * elt + 2 * q.numel() * elt
+                  + table.numel() * 4 + lens.numel() * 4)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
+    return row
+
+
+def phase_kernels(torch, ops, timer) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flash = []
+    # serving path: one prefill of each bucket, qwen3-0.6b heads, bf16
+    for s in (64, 128, 256, 512, 1024):
+        flash.append(flash_case(torch, ops, timer, gen, b=1, s=s, hq=16,
+                                hkv=8, d=128, window=0, dtype="bfloat16",
+                                time_it=True))
+    flash[-1]["main"] = True        # the largest bucket stands for flash
+    for kw in (dict(b=1, s=200, hq=16, hkv=8, d=128, window=0),   # ragged
+               dict(b=2, s=256, hq=16, hkv=8, d=128, window=32),  # window
+               dict(b=2, s=192, hq=8, hkv=2, d=64, window=0),     # G = 4
+               dict(b=1, s=130, hq=4, hkv=4, d=120, window=0)):   # D = 120
+        for dtype in ("bfloat16", "float32"):
+            flash.append(flash_case(torch, ops, timer, gen, dtype=dtype,
+                                    time_it=False, **kw))
+    paged = []
+    rng = random.Random(0)
+    # serving path: 8 slots x 2048 positions in pages of 16, qwen3 heads,
+    # identity table as the engine uses, lengths as mid-run slots hold
+    serve_lens = sorted(rng.randrange(64, 1153) for _ in range(8))
+    paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
+                            per_seq=128, hq=16, hkv=8, d=128,
+                            lengths=serve_lens, permute=False,
+                            dtype="bfloat16", time_it=True))
+    paged[-1]["main"] = True
+    edge = [2048, 0, 1, 17, 333, 1024, 2047, 16]   # length 0, page + 1
+    for dtype in ("bfloat16", "float32"):
+        paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
+                                per_seq=128, hq=16, hkv=8, d=128,
+                                lengths=edge, permute=True, dtype=dtype,
+                                time_it=False))
+        paged.append(paged_case(torch, ops, timer, gen, b=3, page=32,
+                                per_seq=4, hq=8, hkv=2, d=64,
+                                lengths=[128, 3, 33], permute=True,
+                                dtype=dtype, time_it=False))
+    return {"flash_attention": flash, "paged_attention": paged}
+
+
+# ----------------------------------------------------------------------
+# phase 3: the model path, kernels on the card against plain on the CPU
+# ----------------------------------------------------------------------
+
+def phase_path(torch, ops) -> dict:
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(ARCHS["qwen3-0.6b"], n_layers=2,
+                              dtype="float32", name="qwen3-0.6b-2l-f32")
+    models = {dev: build_model(cfg, device=dev, seed=1)
+              for dev in ("cpu", "cuda")}
+    rng = random.Random(1)
+    prompt = [rng.randrange(cfg.vocab) for _ in range(200)]
+    toks = torch.zeros((1, 256), dtype=torch.int32)
+    toks[0, -200:] = torch.tensor(prompt, dtype=torch.int32)
+    forced = [[rng.randrange(cfg.vocab)] for _ in range(8)]
+    ops.reset_launch_counts()
+    logits = {}
+    for dev, m in models.items():
+        cache = m.init_cache(1, 2048)
+        out, cache = m.prefill(toks.to(dev), cache)
+        steps = [out.float().cpu()]
+        for t in forced:
+            out, cache = m.decode_step(
+                torch.tensor([t], dtype=torch.int32, device=dev), cache)
+            steps.append(out.float().cpu())
+        logits[dev] = torch.stack(steps)
+    counts = ops.launch_counts()
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    check(bool(torch.isfinite(logits["cuda"]).all()), "path logits not "
+          "finite")
+    check(err <= 1e-3, f"path logits differ from the CPU by {err} > 1e-3")
+    check(counts == {"flash_attention": 2, "paged_attention": 16},
+          f"path launches {counts}, want 2 flash and 16 paged")
+    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": cfg.dtype, "prompt": 200, "bucket": 256,
+            "decode_steps": 8, "max_abs_logit_err": err,
+            "launches": counts}
+
+
+# ----------------------------------------------------------------------
+# phase 4: serve qwen3-0.6b at full size behind the engine
+# ----------------------------------------------------------------------
+
+def phase_serve(torch, ops) -> dict:
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serving import (EngineConfig, InferenceEngine,
+                                     ServeRequest)
+    cfg = ARCHS["qwen3-0.6b"]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = InferenceEngine(model, EngineConfig(
+        max_slots=8, max_seq=2048, page_size=16, n_pages=1024,
+        telemetry=True, mitigate=True))
+    rng = random.Random(0)
+    # every prefill bucket from 64 to 1024
+    lens = [64, 90, 128, 180, 256, 333, 512, 700, 1000, 77, 150, 240,
+            400, 800, 999, 64]
+    reqs = [ServeRequest(req_id=i, arrival=i * 0.004,
+                         prompt=[rng.randrange(cfg.vocab) for _ in range(n)],
+                         max_new_tokens=rng.randrange(16, 129))
+            for i, n in enumerate(lens)]
+
+    finite = []          # one device flag per model call, read at the end
+    spent = {"prefill": 0.0, "decode": 0.0}
+
+    def checked(fn):
+        def inner(*args):
+            out = fn(*args)
+            finite.append(torch.isfinite(out[0]).all())
+            return out
+        return inner
+
+    def timed(fn, name):
+        # host clock; each engine step ends in a device-to-host copy
+        def inner(*args):
+            s = time.perf_counter()
+            out = fn(*args)
+            spent[name] += time.perf_counter() - s
+            return out
+        return inner
+
+    model.prefill = checked(model.prefill)
+    model.decode_step = checked(model.decode_step)
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._step = timed(eng._step, "decode")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = eng.run(reqs, max_steps=4000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    prefills, steps = eng.stats["prefills"], rep["steps"]
+    check(rep["completed"] == len(reqs), f"completed {rep['completed']} of "
+          f"{len(reqs)}")
+    check(rep["tokens"] == sum(r.max_new_tokens for r in reqs),
+          "token count mismatch")
+    check(counts["flash_attention"] == cfg.n_layers * prefills,
+          f"flash launches {counts['flash_attention']} != "
+          f"{cfg.n_layers} x {prefills} prefills")
+    check(counts["paged_attention"] == cfg.n_layers * steps,
+          f"paged launches {counts['paged_attention']} != "
+          f"{cfg.n_layers} x {steps} steps")
+    check(bool(torch.stack(finite).all()), "serve logits not finite")
+    tel = rep["telemetry"]
+    return {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "requests": len(reqs), "completed": rep["completed"],
+            "prefills": prefills, "steps": steps, "tokens": rep["tokens"],
+            "buckets": sorted({eng.sched.bucket_len(n) for n in lens}),
+            "init_s": init_s, "wall_s": wall,
+            "prefill_s": spent["prefill"], "decode_s": spent["decode"],
+            "ms_per_decode_step": spent["decode"] / steps * 1e3,
+            "ms_per_prefill": spent["prefill"] / prefills * 1e3,
+            "tokens_per_s_wall": rep["tokens"] / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": counts, "events": tel["events"],
+            "findings_by_row": tel["findings_by_row"],
+            "actions": [a for _, a, _ in tel["actions"]]}
+
+
+# ----------------------------------------------------------------------
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build, ops
+
+    t0 = time.perf_counter()
+    smi = smi_line()
+    build.build()
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in build.build_logs.items()}
+    emit({"phase": "build", "nvcc": build.nvcc_version(), "gpu": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+
+    timer = Timer(torch)
+    t0 = time.perf_counter()
+    kern = phase_kernels(torch, ops, timer)
+    emit({"phase": "kernels", "gpu": smi,
+          "seconds": time.perf_counter() - t0, **kern})
+
+    t0 = time.perf_counter()
+    path = phase_path(torch, ops)
+    emit({"phase": "path", "seconds": time.perf_counter() - t0, **path})
+
+    t0 = time.perf_counter()
+    serve = phase_serve(torch, ops)
+    emit({"phase": "serve", "gpu": smi,
+          "seconds": time.perf_counter() - t0, **serve})
+
+    summary = []
+    for name, rows in kern.items():
+        main_row = next(r for r in rows if r.get("main"))
+        summary.append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name], "replaces_fn": REPLACES_FN[name],
+            "launches": serve["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["ms"], "kernel_ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
+    emit({"kernels": summary})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

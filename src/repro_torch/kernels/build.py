@@ -1,0 +1,99 @@
+"""Build the CUDA kernels from this package's sources at first use, and load
+them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds).  The
+libraries go to ``build/repro_torch/`` at the root of the checkout, which
+``.gitignore`` lists, under a name keyed by a hash of the source, the
+headers beside it and the flags: an edited source rebuilds, an unchanged one
+loads as it is.  All missing libraries build in parallel, one ``nvcc`` per
+source, started together.
+
+Only the CUDA wrappers call into this module; importing it builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("flash_attention", "paged_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+# what nvcc printed (register and shared-memory use per kernel) for each
+# library built by this process
+build_logs: dict[str, str] = {}
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default install directory."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def nvcc_version() -> str:
+    out = subprocess.run([nvcc(), "--version"], capture_output=True,
+                         text=True, check=True).stdout
+    return out.strip().splitlines()[-1]
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: tuple[str, ...] = SOURCES) -> list[Path]:
+    """Compile every library of ``names`` that is not built yet, all at
+    once; raise with nvcc's output if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = []
+    for name in names:
+        path = library_path(name)
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in running:
+        out, _ = proc.communicate()
+        build_logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n"
+                          f"{out}")
+            continue
+        os.replace(tmp, path)  # atomic: a concurrent loader sees all or none
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return [library_path(n) for n in names]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        (path,) = build((name,))
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

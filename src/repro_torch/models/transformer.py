@@ -1,0 +1,138 @@
+"""The dense decoder stack (llama / mistral / qwen): pre-norm GQA attention
+plus SwiGLU MLP, with an optional ring-buffer KV cache.
+
+Counterparts of the JAX package's ``transformer.py`` dense part:
+``decoder_init`` (seeded initialisation), ``ring_info`` (the ring-buffer
+bookkeeping of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``)
+and ``Decoder.forward`` (``decoder_fwd``).  Layers are a ``ModuleList``
+walked by a Python loop in place of ``lax.scan``; the parameters of layer
+``l`` are slice ``l`` of the JAX package's layer-stacked leaves.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MLP, Attention, RMSNorm, dtype_of, weight
+
+
+def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
+              old_kpos: torch.Tensor, fresh: bool = False,
+              page_size: int = 0) -> tuple[dict, torch.Tensor]:
+    """Ring-buffer bookkeeping shared by every attention layer of a step.
+
+    pos: (B,) int32 next position per row; old_kpos: (B, max_seq) int32.
+    ``page_size`` > 0 on a one-token step adds the cache viewed as pages of
+    that size: an identity block table and the per-row lengths."""
+    q_pos = pos[:, None] + torch.arange(s_total, dtype=pos.dtype,
+                                        device=pos.device)
+    if s_total >= max_seq:
+        return {"q_pos": q_pos, "fresh": fresh}, q_pos[:, -max_seq:]
+    slots = (q_pos % max_seq).long()
+    new_kpos = old_kpos.scatter(1, slots, q_pos)
+    ring = {"slots": slots, "kpos": new_kpos, "q_pos": q_pos,
+            "fresh": fresh}
+    if page_size and s_total == 1:
+        if max_seq % page_size:
+            raise ValueError(f"kv_len {max_seq} is not a multiple of the "
+                             f"page size {page_size}")
+        b, per_seq = pos.shape[0], max_seq // page_size
+        # row b's cache is pages b*per_seq .. b*per_seq + per_seq - 1;
+        # after this write it holds min(pos + 1, kv_len) positions
+        ring["table"] = torch.arange(b * per_seq, dtype=torch.int32,
+                                     device=pos.device).view(b, per_seq)
+        ring["lengths"] = torch.clamp(pos + 1, max=max_seq).to(torch.int32)
+        ring["page_size"] = page_size
+    return ring, new_kpos
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv_cache: dict | None = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, kv_cache)
+        return x + self.mlp(self.ln2(x))
+
+
+class Decoder(nn.Module):
+    """Token embedding, the layers, the final norm and the (tied) head."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        if cfg.family != "dense" or cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: only the dense family is ported")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.lm_head = None if cfg.tie_embeddings \
+            else weight((cfg.d_model, cfg.vocab), dt, device)
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+                last_only: bool = False, fresh: bool = False
+                ) -> tuple[torch.Tensor, dict | None]:
+        """Returns (logits, new_cache).
+
+        tokens: (B, S) int.  cache: {"k"/"v": (L,B,kv_len,Hkv,hd), "kpos":
+        (B,kv_len), "pos": (B,), "page_size": int} for serving; its k/v are
+        written in place and the returned cache shares them.  ``fresh``
+        says every row of the cache is at position 0.
+        """
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+        if cache is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+            for layer in self.layers:
+                x = layer(x, positions)
+            new_cache = None
+        else:
+            pos = cache["pos"]
+            page = cache["page_size"] if cfg.swa_window == 0 else 0
+            ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
+                                       cache["kpos"], fresh, page)
+            for l, layer in enumerate(self.layers):
+                kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
+                x = layer(x, ring["q_pos"], kv)
+            # advance by the full written slab
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "pos": pos + x.shape[1], "kpos": new_kpos,
+                         "page_size": cache["page_size"]}
+        if last_only:
+            x = x[:, -1:]      # serving prefill: head for last token only
+        x = self.ln_f(x)
+        head = self.embed.t() if self.lm_head is None else self.lm_head
+        return x @ head.to(x.dtype), new_cache
+
+
+def decoder_init(cfg: ModelConfig, device: torch.device,
+                 generator: torch.Generator) -> Decoder:
+    """Seeded initialisation with the JAX package's scheme: embedding
+    N(0, 0.02), dense weights N(0, 1/in), norm scales 1.  Numbers are drawn
+    in f32 on the CPU from ``generator``, so a seed gives the same weights
+    on every device."""
+    dec = Decoder(cfg, device)
+
+    def fill(param: nn.Parameter, std: float) -> None:
+        w = torch.randn(param.shape, generator=generator,
+                        dtype=torch.float32) * std
+        param.copy_(w)
+
+    fill(dec.embed, 0.02)
+    for name, param in dec.named_parameters():
+        if name != "embed" and param.dim() == 2:
+            fill(param, 1.0 / math.sqrt(param.shape[0]))
+    return dec
