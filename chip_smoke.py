@@ -6,13 +6,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, each printing one JSON line:
   build    build the CUDA kernels with nvcc from the checkout's sources
   kernels  each kernel against its plain PyTorch version on the card, at
-           the serving path's shapes and at edge cases; kernel, plain and
-           library times with CUDA events
-  path     qwen3-0.6b at full width, 2 layers, f32: the same seeded weights
-           on the CPU (plain versions) and on the card (kernels); a
-           200-token prompt and 8 teacher-forced decode steps
-  serve    qwen3-0.6b at full width and depth, bf16, seeded weights, behind
-           InferenceEngine with telemetry and mitigation: 16 requests
+           the serving paths' shapes (qwen3-0.6b's and zamba2-7b's) and at
+           edge cases; kernel, plain and library times with CUDA events
+  path     at full width, f32, the same seeded weights on the CPU (plain
+           versions) and on the card (kernels), a 200-token prompt and 8
+           teacher-forced decode steps: qwen3-0.6b with 2 layers, and
+           zamba2-7b with 7 (one super-block of 6 Mamba2 layers and the
+           shared attention block, and one tail layer)
+  serve    behind InferenceEngine with telemetry and mitigation, full width
+           and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
+           then zamba2-7b serving 8
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -39,20 +42,24 @@ SRC = ROOT / "src"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SSD_TOL = 2e-4      # the JAX package's own SSD scan tolerance
 
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:137",
     "paged_attention": "src/repro/kernels/paged_attention.py:128",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
 }
 REPLACES_FN = {
     "flash_attention": "src/repro/kernels/flash_attention.py:"
                        "flash_attention_kernel",
     "paged_attention": "src/repro/kernels/paged_attention.py:"
                        "paged_attention_kernel",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:ssd_scan_kernel",
 }
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 
 
@@ -116,10 +123,11 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def max_err(torch, got, want, dtype: str) -> float:
+def max_err(torch, got, want, dtype: str, tol: float | None = None
+            ) -> float:
     check(bool(torch.isfinite(got).all()), "kernel output not finite")
     g, w = got.float(), want.float()
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     bad = (g - w).abs() > tol + tol * w.abs()
     check(not bool(bad.any()),
           f"kernel disagrees with plain version beyond {tol}: max |d| "
@@ -195,6 +203,55 @@ def paged_case(torch, ops, timer, gen, *, b, page, per_seq, hq, hkv, d,
     return row
 
 
+def ssd_work(b, l, h, p, n, init: bool) -> tuple[float, float]:
+    """FLOP and bytes the SSD scan needs on these shapes: C B^T once per
+    batch and chunk (B and C are shared by the heads), G x, C S^T and
+    x^T B per head, lower triangles only, a ragged last chunk as long as
+    it is; every input read once and every output written once."""
+    flops = 0.0
+    for c0 in range(0, l, 128):
+        lc = min(128, l - c0)
+        tri = lc * (lc + 1) / 2
+        flops += b * tri * n * 2
+        flops += b * h * (tri * p * 2 + 2 * lc * n * p * 2)
+    states = (2 if init else 1) * b * h * p * n
+    nbytes = 4.0 * (2 * b * l * h * p + b * l * h + 2 * b * l * n + states)
+    return flops, nbytes
+
+
+def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
+    """Inputs as a Mamba2 layer makes them: dt = softplus(N(0, 1)), the
+    log-decay a = -dt * linspace(1, 16, h), x = N(0, 1) * dt, B and C
+    N(0, 1); y and the final state against the plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, l, h), generator=gen, device="cuda"))
+    a = -dt * torch.linspace(1.0, 16.0, h, device="cuda")
+    x = torch.randn((b, l, h, p), generator=gen, device="cuda") \
+        * dt[..., None]
+    B, C = (torch.randn((b, l, n), generator=gen, device="cuda")
+            for _ in range(2))
+    s0 = (torch.randn((b, h, p, n), generator=gen, device="cuda")
+          if init else None)
+    y, final = ops.ssd_scan(x, a, B, C, s0)
+    y_want, final_want = ssd_scan_plain(x, a, B, C, s0)
+    torch.cuda.synchronize()
+    row = {"b": b, "l": l, "h": h, "p": p, "n": n, "init_state": init,
+           "dtype": "float32",
+           "max_abs_err": max(max_err(torch, y, y_want, "float32", SSD_TOL),
+                              max_err(torch, final, final_want, "float32",
+                                      SSD_TOL)),
+           "max_abs_err_state": float((final - final_want).abs().max())}
+    if time_it:
+        row["ms"] = timer(lambda: ops.ssd_scan(x, a, B, C, s0))
+        row["plain_ms"] = timer(lambda: ssd_scan_plain(x, a, B, C, s0),
+                                iters=5)
+        row["library_ms"] = None    # no single PyTorch call is the scan
+        flops, nbytes = ssd_work(b, l, h, p, n, init)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    return row
+
+
 def phase_kernels(torch, ops, timer) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -206,6 +263,7 @@ def phase_kernels(torch, ops, timer) -> dict:
                                 hkv=8, d=128, window=0, dtype="bfloat16",
                                 time_it=True))
     flash[-1]["main"] = True        # the largest bucket stands for flash
+    flash[-1]["model"] = "qwen3-0.6b"
     for kw in (dict(b=1, s=200, hq=16, hkv=8, d=128, window=0),   # ragged
                dict(b=2, s=256, hq=16, hkv=8, d=128, window=32),  # window
                dict(b=2, s=192, hq=8, hkv=2, d=64, window=0),     # G = 4
@@ -223,6 +281,22 @@ def phase_kernels(torch, ops, timer) -> dict:
                             lengths=serve_lens, permute=False,
                             dtype="bfloat16", time_it=True))
     paged[-1]["main"] = True
+    paged[-1]["model"] = "qwen3-0.6b"
+    # zamba2-7b's shared attention block: MHA (G = 1), D = 112, bf16, at
+    # every prefill bucket and at the serve case's decode cache
+    hq = hkv = 32
+    d = 112
+    for s in (64, 128, 256, 512, 1024):
+        flash.append(flash_case(torch, ops, timer, gen, b=1, s=s, hq=hq,
+                                hkv=hkv, d=d, window=0, dtype="bfloat16",
+                                time_it=s == 1024))
+    flash[-1]["model"] = "zamba2-7b"
+    zamba_lens = sorted(rng.randrange(64, 1089) for _ in range(8))
+    paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
+                            per_seq=128, hq=hq, hkv=hkv, d=d,
+                            lengths=zamba_lens, permute=False,
+                            dtype="bfloat16", time_it=True))
+    paged[-1]["model"] = "zamba2-7b"
     edge = [2048, 0, 1, 17, 333, 1024, 2047, 16]   # length 0, page + 1
     for dtype in ("bfloat16", "float32"):
         paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
@@ -233,20 +307,53 @@ def phase_kernels(torch, ops, timer) -> dict:
                                 per_seq=4, hq=8, hkv=2, d=64,
                                 lengths=[128, 3, 33], permute=True,
                                 dtype=dtype, time_it=False))
-    return {"flash_attention": flash, "paged_attention": paged}
+    ssd = []
+    # zamba2-7b's Mamba2 layers: b = 1, 112 heads, p = n = 64, f32, one
+    # scan per prefill bucket; the largest bucket stands for the kernel
+    for l in (64, 128, 256, 512, 1024):
+        ssd.append(ssd_case(torch, ops, timer, gen, b=1, l=l, h=112, p=64,
+                            n=64, init=False, time_it=l == 1024))
+    ssd[-1]["main"] = True
+    ssd[-1]["model"] = "zamba2-7b"
+    for kw in (dict(b=1, l=200, h=112, p=64, n=64, init=True),  # ragged
+               dict(b=2, l=256, h=3, p=32, n=16, init=True),    # small
+               dict(b=1, l=384, h=112, p=64, n=64, init=False)):
+        ssd.append(ssd_case(torch, ops, timer, gen, time_it=False, **kw))
+    return {"flash_attention": flash, "paged_attention": paged,
+            "ssd_scan": ssd}
 
 
 # ----------------------------------------------------------------------
 # phase 3: the model path, kernels on the card against plain on the CPU
 # ----------------------------------------------------------------------
 
-def phase_path(torch, ops) -> dict:
+def kernel_launches(cfg, prefills: int, steps: int) -> dict[str, int]:
+    """Launches one model's serving path must make: flash per attention
+    layer (or shared-block application) and prefill, paged per attention
+    layer and decode step, the SSD scan per Mamba2 layer and prefill."""
+    if cfg.family == "hybrid":
+        attn, mamba = cfg.n_layers // cfg.attn_every, cfg.n_layers
+    else:
+        attn, mamba = cfg.n_layers, 0
+    return {"flash_attention": attn * prefills,
+            "paged_attention": attn * steps, "ssd_scan": mamba * prefills}
+
+
+def path_case(torch, ops, arch: str, n_layers: int) -> dict:
+    """The same seeded f32 weights on the CPU (plain versions) and on the
+    card (kernels): a 200-token prompt in the 256 bucket, then 8
+    teacher-forced decode steps; logits must agree to 1e-3."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(ARCHS["qwen3-0.6b"], n_layers=2,
-                              dtype="float32", name="qwen3-0.6b-2l-f32")
-    models = {dev: build_model(cfg, device=dev, seed=1)
-              for dev in ("cpu", "cuda")}
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers,
+                              dtype="float32",
+                              name=f"{arch}-{n_layers}l-f32")
+    cpu = build_model(cfg, device="cpu", seed=1)
+    # the card's copy of the CPU weights (drawn once)
+    net = type(cpu.decoder)(cfg, torch.device("cuda"))
+    net.load_state_dict(cpu.decoder.state_dict())
+    models = {"cpu": cpu, "cuda": Model(cfg, net, torch.device("cuda"))}
     rng = random.Random(1)
     prompt = [rng.randrange(cfg.vocab) for _ in range(200)]
     toks = torch.zeros((1, 256), dtype=torch.int32)
@@ -265,41 +372,85 @@ def phase_path(torch, ops) -> dict:
         logits[dev] = torch.stack(steps)
     counts = ops.launch_counts()
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
-    check(bool(torch.isfinite(logits["cuda"]).all()), "path logits not "
-          "finite")
-    check(err <= 1e-3, f"path logits differ from the CPU by {err} > 1e-3")
-    check(counts == {"flash_attention": 2, "paged_attention": 16},
-          f"path launches {counts}, want 2 flash and 16 paged")
-    return {"layers": cfg.n_layers, "d_model": cfg.d_model,
+    check(bool(torch.isfinite(logits["cuda"]).all()), f"{arch} path "
+          "logits not finite")
+    check(err <= 1e-3, f"{arch} path logits differ from the CPU by {err} "
+          "> 1e-3")
+    want = kernel_launches(cfg, prefills=1, steps=len(forced))
+    check(counts == want, f"{arch} path launches {counts}, want {want}")
+    return {"model": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "dtype": cfg.dtype, "prompt": 200, "bucket": 256,
-            "decode_steps": 8, "max_abs_logit_err": err,
+            "decode_steps": len(forced), "max_abs_logit_err": err,
             "launches": counts}
 
 
+def phase_path(torch, ops) -> dict:
+    cases = [path_case(torch, ops, "qwen3-0.6b", 2),
+             # one super-block (6 Mamba2 layers + the shared block) and a
+             # one-layer tail
+             path_case(torch, ops, "zamba2-7b", 7)]
+    torch.cuda.empty_cache()
+    return {"cases": cases}
+
+
 # ----------------------------------------------------------------------
-# phase 4: serve qwen3-0.6b at full size behind the engine
+# phase 4: serve each model at full size behind the engine
 # ----------------------------------------------------------------------
 
-def phase_serve(torch, ops) -> dict:
+def profile_calls(torch, fn, n: int) -> dict:
+    """Host time per call of ``fn`` without and with ``torch.profiler``,
+    and, from the profiled run, the device time per call summed over the
+    CUDA kernels, the busy share (device time over the unprofiled host
+    time) and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_prof_ms = (time.perf_counter() - t0) / n * 1e3
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    device_ms = sum(dev_us(e) for e in kernels) / n / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"calls": n, "host_ms": wall_ms, "host_ms_profiled": wall_prof_ms,
+            "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "kernel_launches": sum(e.count for e in kernels) / n,
+            "top": [{"kernel": e.key[:70], "ms": dev_us(e) / n / 1e3,
+                     "launches": e.count / n} for e in top]}
+
+
+def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
+               seed: int = 0) -> dict:
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.serving import (EngineConfig, InferenceEngine,
                                      ServeRequest)
-    cfg = ARCHS["qwen3-0.6b"]
+    cfg = ARCHS[arch]
     t0 = time.perf_counter()
-    model = build_model(cfg, device="cuda", seed=0)
+    model = build_model(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = InferenceEngine(model, EngineConfig(
         max_slots=8, max_seq=2048, page_size=16, n_pages=1024,
         telemetry=True, mitigate=True))
-    rng = random.Random(0)
-    # every prefill bucket from 64 to 1024
-    lens = [64, 90, 128, 180, 256, 333, 512, 700, 1000, 77, 150, 240,
-            400, 800, 999, 64]
+    rng = random.Random(seed)
     reqs = [ServeRequest(req_id=i, arrival=i * 0.004,
                          prompt=[rng.randrange(cfg.vocab) for _ in range(n)],
-                         max_new_tokens=rng.randrange(16, 129))
+                         max_new_tokens=rng.randrange(*new_tokens))
             for i, n in enumerate(lens)]
 
     finite = []          # one device flag per model call, read at the end
@@ -321,6 +472,7 @@ def phase_serve(torch, ops) -> dict:
             return out
         return inner
 
+    prefill, decode_step = model.prefill, model.decode_step
     model.prefill = checked(model.prefill)
     model.decode_step = checked(model.decode_step)
     eng._prefill = timed(eng._prefill, "prefill")
@@ -333,31 +485,56 @@ def phase_serve(torch, ops) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     prefills, steps = eng.stats["prefills"], rep["steps"]
-    check(rep["completed"] == len(reqs), f"completed {rep['completed']} of "
-          f"{len(reqs)}")
+    check(rep["completed"] == len(reqs), f"{arch}: completed "
+          f"{rep['completed']} of {len(reqs)}")
     check(rep["tokens"] == sum(r.max_new_tokens for r in reqs),
-          "token count mismatch")
-    check(counts["flash_attention"] == cfg.n_layers * prefills,
-          f"flash launches {counts['flash_attention']} != "
-          f"{cfg.n_layers} x {prefills} prefills")
-    check(counts["paged_attention"] == cfg.n_layers * steps,
-          f"paged launches {counts['paged_attention']} != "
-          f"{cfg.n_layers} x {steps} steps")
-    check(bool(torch.stack(finite).all()), "serve logits not finite")
+          f"{arch}: token count mismatch")
+    want = kernel_launches(cfg, prefills, steps)
+    check(counts == want, f"{arch}: launches {counts}, want {want} for "
+          f"{prefills} prefills and {steps} steps")
+    check(bool(torch.stack(finite).all()), f"{arch}: serve logits not "
+          "finite")
+    # where a decode step of all 8 slots and a 1024-token prefill spend
+    # their time (after the run; these launches are not counted above)
+    toks = torch.zeros((8, 1), dtype=torch.int32, device=model.device)
+    prompt = torch.zeros((1, 1024), dtype=torch.int32, device=model.device)
+    profiled = {
+        "decode_step": profile_calls(
+            torch, lambda: decode_step(toks, eng.slot_cache), 5),
+        "prefill_1024": profile_calls(
+            torch, lambda: prefill(prompt, model.init_cache(1, 2048)), 2)}
     tel = rep["telemetry"]
-    return {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
-            "requests": len(reqs), "completed": rep["completed"],
-            "prefills": prefills, "steps": steps, "tokens": rep["tokens"],
-            "buckets": sorted({eng.sched.bucket_len(n) for n in lens}),
-            "init_s": init_s, "wall_s": wall,
-            "prefill_s": spent["prefill"], "decode_s": spent["decode"],
-            "ms_per_decode_step": spent["decode"] / steps * 1e3,
-            "ms_per_prefill": spent["prefill"] / prefills * 1e3,
-            "tokens_per_s_wall": rep["tokens"] / wall,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": counts, "events": tel["events"],
-            "findings_by_row": tel["findings_by_row"],
-            "actions": [a for _, a, _ in tel["actions"]]}
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": sum(p.numel() for p in model.decoder.parameters()),
+           "requests": len(reqs), "completed": rep["completed"],
+           "prefills": prefills, "steps": steps, "tokens": rep["tokens"],
+           "buckets": sorted({eng.sched.bucket_len(n) for n in lens}),
+           "init_s": init_s, "wall_s": wall,
+           "prefill_s": spent["prefill"], "decode_s": spent["decode"],
+           "ms_per_decode_step": spent["decode"] / steps * 1e3,
+           "ms_per_prefill": spent["prefill"] / prefills * 1e3,
+           "tokens_per_s_wall": rep["tokens"] / wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": counts, "events": tel["events"],
+           "findings_by_row": tel["findings_by_row"],
+           "actions": [a for _, a, _ in tel["actions"]],
+           "profile": profiled}
+    del eng, model, prefill, decode_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(torch, ops) -> dict:
+    # qwen3-0.6b: 16 requests over every prefill bucket 64-1024, 16-128
+    # new tokens each
+    qwen = serve_case(torch, ops, "qwen3-0.6b",
+                      [64, 90, 128, 180, 256, 333, 512, 700, 1000, 77, 150,
+                       240, 400, 800, 999, 64], (16, 129))
+    # zamba2-7b: 8 requests (one per slot) over every bucket, 16-64 new
+    # tokens each
+    zamba = serve_case(torch, ops, "zamba2-7b",
+                       [50, 64, 120, 200, 256, 333, 512, 1000], (16, 65))
+    return {"cases": [qwen, zamba]}
 
 
 # ----------------------------------------------------------------------
@@ -399,19 +576,27 @@ def main() -> int:
     emit({"phase": "serve", "gpu": smi,
           "seconds": time.perf_counter() - t0, **serve})
 
+    # launches on the main paths: each kernel's count summed over the
+    # serve cases (each case's counts were set to 0 just before its run)
+    launches = {name: sum(c["launches"][name] for c in serve["cases"])
+                for name in kern}
     summary = []
     for name, rows in kern.items():
         main_row = next(r for r in rows if r.get("main"))
+        by_model = {r["model"]: {k: r[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for r in rows if "model" in r and "ms" in r}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "replaces_fn": REPLACES_FN[name],
-            "launches": serve["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["ms"], "kernel_ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
-            "library_ms": main_row["library_ms"]})
+            "library_ms": main_row["library_ms"],
+            "main_shape_of": main_row["model"], "by_model": by_model})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,13 +1,15 @@
 """Parameters from the JAX package into the port.
 
-``params_from_jax(cfg, tree)`` takes the JAX decoder's parameter pytree with
-its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``): a dict
-with ``embed``, ``ln_f``, optionally ``lm_head``, and ``layers`` whose
-leaves carry a leading layer axis.  One leaf maps to one tensor; slice
-``l`` of a layer-stacked leaf goes to layer ``l``.  Module names mirror the
-pytree paths (``layers/attn/wq`` -> ``layers[l].attn.wq``).  Dense weights
-keep the JAX layout ``(in, out)``: the port computes ``x @ w`` as the JAX
-package does, with no transpose.
+``params_from_jax(cfg, tree)`` takes the JAX model's parameter pytree with
+its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``).  Dense:
+``embed``, ``ln_f``, optionally ``lm_head``, and ``layers`` whose leaves
+carry a leading layer axis.  Hybrid: ``embed``, ``shared``, ``ln_f``,
+``lm_head``, ``blocks`` whose leaves carry two leading axes (super-block,
+layer in it) and optionally ``tail`` with one.  One slice of a stacked leaf
+maps to one tensor: ``layers/attn/wq[l]`` -> ``layers[l].attn.wq``,
+``blocks/mamba/in_proj[i, j]`` -> ``blocks[i][j].mamba.in_proj``.  Dense
+weights keep the JAX layout ``(in, out)``: the port computes ``x @ w`` as
+the JAX package does, with no transpose.
 
 This module imports no JAX; the caller converts the leaves to numpy.
 """
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import Model, resolve_device
-from repro_torch.models.transformer import Decoder
+from repro_torch.models.transformer import Decoder, Hybrid
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -37,8 +39,14 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> Model:
     """Build the port's model with the JAX package's weights."""
     dev = resolve_device(device)
-    dec = Decoder(cfg, dev)
-    params = dict(dec.named_parameters())
+    if cfg.family == "hybrid":
+        net = Hybrid(cfg, dev)
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        stacks = {"blocks": (n_super, cfg.attn_every), "tail": (n_tail,)}
+    else:
+        net = Decoder(cfg, dev)
+        stacks = {"layers": (cfg.n_layers,)}
+    params = dict(net.named_parameters())
     filled = set()
 
     def put(name: str, arr: np.ndarray) -> None:
@@ -53,17 +61,19 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
         filled.add(name)
 
     for path, leaf in _flatten(tree).items():
-        if path.startswith("layers."):
-            stacked = np.asarray(leaf)
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"{path}: {stacked.shape[0]} layers, "
-                                 f"config has {cfg.n_layers}")
-            rest = path[len("layers."):]
-            for l in range(cfg.n_layers):
-                put(f"layers.{l}.{rest}", stacked[l])
-        else:
-            put(path, np.asarray(leaf))
+        arr = np.asarray(leaf)
+        top, _, rest = path.partition(".")
+        if top not in stacks:
+            put(path, arr)
+            continue
+        axes = stacks[top]
+        if tuple(arr.shape[:len(axes)]) != axes:
+            raise ValueError(f"{path}: leading axes "
+                             f"{tuple(arr.shape[:len(axes)])}, config has "
+                             f"{axes}")
+        for idx in np.ndindex(*axes):
+            put(".".join([top, *map(str, idx), rest]), arr[idx])
     missing = sorted(set(params) - filled)
     if missing:
         raise KeyError(f"no JAX leaf for {missing}")
-    return Model(cfg, dec, dev)
+    return Model(cfg, net, dev)

@@ -1,5 +1,5 @@
-"""Entry points for the attention kernels: one decision, made by where the
-tensors lie.
+"""Entry points for the kernels: one decision, made by where the tensors
+lie.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises.  A CPU tensor goes to the kernel's plain PyTorch version.  There is
@@ -25,9 +25,16 @@ from repro_torch.kernels.paged_attention import (
     paged_attention_cuda,
     paged_attention_plain,
 )
+from repro_torch.kernels.ssd_scan import (
+    CHUNK,
+    check_ssd_args,
+    ssd_scan_cuda,
+    ssd_scan_plain,
+)
 
 KERNELS = {"flash_attention": flash_attention_cuda,
-           "paged_attention": paged_attention_cuda}
+           "paged_attention": paged_attention_cuda,
+           "ssd_scan": ssd_scan_cuda}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -54,6 +61,20 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      lengths)
     raise ValueError(f"no paged attention for device {q.device}")
+
+
+def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, init_state: torch.Tensor | None = None,
+             chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n); init_state
+    (b, h, p, n) or None; all f32 -> y (b, l, h, p), final state
+    (b, h, p, n)."""
+    check_ssd_args(x, a, B, C, init_state, chunk)
+    if x.device.type == "cuda":
+        return ssd_scan_cuda(x, a, B, C, init_state, chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, a, B, C, init_state, chunk)
+    raise ValueError(f"no SSD scan for device {x.device}")
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,10 +1,10 @@
-"""Plain PyTorch oracles for the attention kernels (the correctness
-references).
+"""Plain PyTorch oracles for the kernels (the correctness references).
 
-Each function is the semantics its CUDA kernel must match: f32 math, a -inf
-mask, and zeros (not NaN) for a fully masked row.  On a CPU tensor the
-``ops`` entry points run these; on the card ``chip_smoke.py`` holds each
-kernel against them.
+Each function is the semantics its CUDA kernel must match.  Attention: f32
+math, a -inf mask, and zeros (not NaN) for a fully masked row.  SSD scan:
+the sequential state recurrence, state in f32.  On a CPU tensor the ``ops``
+entry points run the attention oracles; the SSD scan's plain version is the
+chunked form (``ssd_scan.ssd_scan_plain``), which this recurrence checks.
 """
 
 from __future__ import annotations
@@ -77,3 +77,25 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     p = _softmax_zero_masked(s)
     out = torch.einsum("bhk,bkhd->bhd", p, v)
     return out.to(q.dtype)
+
+
+def ssd_scan_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, init_state: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the exact semantics), one step at a time.
+
+    x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n).
+    state: (b, h, p, n).  s_t = exp(a_t) s_{t-1} + x_t (x) B_t,
+    y_t = C_t . s_t.  Returns y (b, l, h, p) and the final state, f32.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    s = (init_state.float().clone() if init_state is not None
+         else torch.zeros((b, h, p, n), dtype=torch.float32,
+                          device=x.device))
+    ys = []
+    for t in range(l):
+        s = s * torch.exp(a[:, t].float())[..., None, None] + torch.einsum(
+            "bhp,bn->bhpn", x[:, t].float(), B[:, t].float())
+        ys.append(torch.einsum("bhpn,bn->bhp", s, C[:, t].float()))
+    return torch.stack(ys, dim=1), s

@@ -1,12 +1,15 @@
-"""The dense decoder stack (llama / mistral / qwen): pre-norm GQA attention
-plus SwiGLU MLP, with an optional ring-buffer KV cache.
+"""Model stacks: the dense decoder (llama / mistral / qwen: pre-norm GQA
+attention plus SwiGLU MLP) and the zamba2 hybrid (a Mamba2 backbone with ONE
+parameter-shared attention+MLP block applied after every ``attn_every``
+layers), each with an optional cache.
 
-Counterparts of the JAX package's ``transformer.py`` dense part:
-``decoder_init`` (seeded initialisation), ``ring_info`` (the ring-buffer
-bookkeeping of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``)
-and ``Decoder.forward`` (``decoder_fwd``).  Layers are a ``ModuleList``
-walked by a Python loop in place of ``lax.scan``; the parameters of layer
-``l`` are slice ``l`` of the JAX package's layer-stacked leaves.
+Counterparts of the JAX package's ``transformer.py``: ``decoder_init`` and
+``hybrid_init`` (seeded initialisation), ``ring_info`` (the ring-buffer
+bookkeeping of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``),
+``Decoder.forward`` (``decoder_fwd``) and ``Hybrid.forward``
+(``hybrid_fwd``).  Layers are ``ModuleList``s walked by Python loops in place
+of ``lax.scan``; the parameters of layer ``l`` are slice ``l`` of the JAX
+package's layer-stacked leaves (``[i][j]`` for the hybrid's super-blocks).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Attention, RMSNorm, dtype_of, weight
+from repro_torch.models.ssm import MambaLayer
 
 
 def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
@@ -72,7 +76,7 @@ class Decoder(nn.Module):
         super().__init__()
         if cfg.family != "dense" or cfg.is_moe:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported")
+                f"{cfg.name}: only the dense and hybrid families are ported")
         self.cfg = cfg
         dt = dtype_of(cfg)
         self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
@@ -118,21 +122,106 @@ class Decoder(nn.Module):
         return x @ head.to(x.dtype), new_cache
 
 
-def decoder_init(cfg: ModelConfig, device: torch.device,
-                 generator: torch.Generator) -> Decoder:
-    """Seeded initialisation with the JAX package's scheme: embedding
-    N(0, 0.02), dense weights N(0, 1/in), norm scales 1.  Numbers are drawn
-    in f32 on the CPU from ``generator``, so a seed gives the same weights
-    on every device."""
-    dec = Decoder(cfg, device)
+class Hybrid(nn.Module):
+    """zamba2: embedding; ``n_layers // attn_every`` super-blocks of
+    ``attn_every`` Mamba2 layers, each followed by the one shared
+    attention+MLP block (a ``DecoderLayer``: the same pre-norm residual
+    structure); ``n_layers % attn_every`` tail layers; final norm and an
+    untied head."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        if cfg.family != "hybrid":
+            raise ValueError(f"{cfg.name}: not a hybrid config")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
+        self.blocks = nn.ModuleList(
+            nn.ModuleList(MambaLayer(cfg, device)
+                          for _ in range(cfg.attn_every))
+            for _ in range(n_super))
+        self.shared = DecoderLayer(cfg, device)
+        self.tail = nn.ModuleList(MambaLayer(cfg, device)
+                                  for _ in range(n_tail))
+        self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+                last_only: bool = False, fresh: bool = False
+                ) -> tuple[torch.Tensor, dict | None]:
+        """Returns (logits, new_cache).
+
+        cache: {"ssm": (n_super, attn_every, B, H, P, N) f32, "ssm_tail":
+        (n_tail, B, H, P, N) f32 (with a tail), "k"/"v": (n_super, B,
+        max_seq, Hkv, hd), "kpos": (B, max_seq), "pos": (B,), "page_size":
+        int}; states, k and v are written in place and the returned cache
+        shares them.  One token steps every Mamba2 state; a longer slab
+        scans from it (the SSD kernel).  ``fresh`` says every row of the
+        cache is at position 0.
+        """
+        cfg = self.cfg
+        x = self.embed[tokens.long()]
+        if cache is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+            for block in self.blocks:
+                for layer in block:
+                    x = layer(x)
+                x = self.shared(x, positions)
+            for layer in self.tail:
+                x = layer(x)
+            new_cache = None
+        else:
+            pos = cache["pos"]
+            page = cache["page_size"] if cfg.swa_window == 0 else 0
+            ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
+                                       cache["kpos"], fresh, page)
+            for i, block in enumerate(self.blocks):
+                for j, layer in enumerate(block):
+                    x = layer(x, cache["ssm"][i, j])
+                kv = {"k": cache["k"][i], "v": cache["v"][i], **ring}
+                x = self.shared(x, ring["q_pos"], kv)
+            for j, layer in enumerate(self.tail):
+                x = layer(x, cache["ssm_tail"][j])
+            new_cache = dict(cache, pos=pos + x.shape[1], kpos=new_kpos)
+        if last_only:
+            x = x[:, -1:]      # serving prefill: head for last token only
+        x = self.ln_f(x)
+        return x @ self.lm_head, new_cache
+
+
+def _fill_weights(net: nn.Module, generator: torch.Generator) -> None:
+    """The JAX package's scheme: embedding N(0, 0.02), every other 2-D
+    weight N(0, 1/in); norms and 1-D parameters keep their constructed
+    values.  Numbers are drawn in f32 on the CPU from ``generator``, in
+    parameter order, so a seed gives the same weights on every device."""
 
     def fill(param: nn.Parameter, std: float) -> None:
         w = torch.randn(param.shape, generator=generator,
                         dtype=torch.float32) * std
         param.copy_(w)
 
-    fill(dec.embed, 0.02)
-    for name, param in dec.named_parameters():
+    fill(net.embed, 0.02)
+    for name, param in net.named_parameters():
         if name != "embed" and param.dim() == 2:
             fill(param, 1.0 / math.sqrt(param.shape[0]))
+
+
+def decoder_init(cfg: ModelConfig, device: torch.device,
+                 generator: torch.Generator) -> Decoder:
+    """Seeded initialisation with the JAX package's scheme: embedding
+    N(0, 0.02), dense weights N(0, 1/in), norm scales 1."""
+    dec = Decoder(cfg, device)
+    _fill_weights(dec, generator)
     return dec
+
+
+def hybrid_init(cfg: ModelConfig, device: torch.device,
+                generator: torch.Generator) -> Hybrid:
+    """Seeded initialisation with the JAX package's scheme: as
+    ``decoder_init``, plus each Mamba2 layer's f32 ``A_log`` =
+    log(linspace(1, 16, h)), ``D`` = 1 and ``dt_bias`` = 0 (set by the
+    module) and its norm scales 1."""
+    net = Hybrid(cfg, device)
+    _fill_weights(net, generator)
+    return net

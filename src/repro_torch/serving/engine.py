@@ -1,11 +1,13 @@
 """InferenceEngine: continuous-batching serving loop with the DPU-analog
 telemetry plane wired through it (the paper's architecture, live).
 
-The per-slot KV caches are one batched cache, ``(L, slots, kv_len, Hkv,
-D)``, with a position per slot; the decode step runs every slot in one call,
-so every slot carries its own position/ring state (true continuous
+The per-slot caches are one batched cache, e.g. ``(L, slots, kv_len, Hkv,
+D)`` for a dense model's KV and ``(.., slots, H, P, N)`` for a hybrid's
+Mamba2 states, with a position per slot; the decode step runs every slot in
+one call, so every slot carries its own position/ring state (true continuous
 batching).  Prefill attention runs in the flash kernel, decode attention in
-the paged kernel (through ``Model``).  Telemetry taps emit the exact event
+the paged kernel, a hybrid's prefill scan in the SSD kernel (through
+``Model``).  Telemetry taps emit the exact event
 schema the detectors consume: INGRESS on request arrival, H2D around
 prefill feeds, DISPATCH per step, D2H per step, EGRESS per token,
 QUEUE_SAMPLE per scheduler tick -- and the engine implements EngineControls
@@ -30,6 +32,7 @@ from repro_torch.core.detectors import (
 from repro_torch.core.events import EventBatchBuilder, EventKind
 from repro_torch.core.telemetry import TelemetryPlane
 from repro_torch.models import Model
+from repro_torch.models.model import CACHE_BATCH_AXIS
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.scheduler import (
     Scheduler,
@@ -187,11 +190,11 @@ class InferenceEngine:
         # first-token logits return to the host (pairs with the dispatch)
         self._emit(EventKind.D2H_XFER, device=slot % 4,
                    size=int(logits.numel() * 4), flow=req.req_id)
-        # write the slot's row of the batched cache, in place
-        for key in ("k", "v"):
-            self.slot_cache[key][:, slot] = cache[key][:, 0]
-        for key in ("kpos", "pos"):
-            self.slot_cache[key][slot] = cache[key][0]
+        # write the slot's row of every batched cache tensor, in place
+        for key, axis in CACHE_BATCH_AXIS.items():
+            if key in cache:
+                self.slot_cache[key].select(axis, slot).copy_(
+                    cache[key].select(axis, 0))
         nxt = int(torch.argmax(logits[0, -1]))
         req.tokens_out = 0
         req.first_token = -1.0

@@ -45,15 +45,15 @@ def test_the_port_has_modules_and_the_scan_sees_them():
     names = {p.relative_to(PORT).as_posix() for p in MODULES
              if p.is_relative_to(PORT)}
     for want in ("bridge.py", "kernels/ops.py", "kernels/build.py",
-                 "models/layers.py", "serving/engine.py",
-                 "core/telemetry.py"):
+                 "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
+                 "serving/engine.py", "core/telemetry.py"):
         assert want in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
 
 
 @pytest.mark.parametrize("module", ["ops.py", "flash_attention.py",
-                                    "paged_attention.py"])
+                                    "paged_attention.py", "ssd_scan.py"])
 def test_kernel_entry_points_catch_nothing(module):
     tree = ast.parse((PORT / "kernels" / module).read_text())
     handlers = [n.lineno for n in ast.walk(tree)
