@@ -2,12 +2,16 @@
 """Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+(``--phases kernels`` runs the build and only the named phases, for a
+quick check of the kernels, and ends with {"partial": [...]}; only the
+full run proves the port and prints the "ok" line.)
 
 Phases, each printing one JSON line:
   build    build the CUDA kernels with nvcc from the checkout's sources
   kernels  each kernel against its plain PyTorch version on the card, at
            the serving paths' shapes (qwen3-0.6b's and zamba2-7b's) and at
-           edge cases; kernel, plain and library times with CUDA events
+           edge cases; kernel, plain and library times with CUDA events,
+           each two ways (see Timer)
   path     at full width, f32, the same seeded weights on the CPU (plain
            versions) and on the card (kernels), a 200-token prompt and 8
            teacher-forced decode steps: qwen3-0.6b with 2 layers, and
@@ -27,6 +31,7 @@ This script imports nothing of JAX.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import random
@@ -85,32 +90,62 @@ def smi_line() -> str:
 # ----------------------------------------------------------------------
 
 class Timer:
-    """Mean time of one call in ms, from CUDA events around each call.
-    With ``flush``, a 64 MiB write between calls evicts the 50 MB L2, so a
-    call that the real path makes on cold data is timed cold."""
+    """Mean time of one call in ms, from CUDA events around each call,
+    taken two ways on the same calls.
+
+    ``__call__`` returns the events' time with each call enqueued as it
+    comes (the script's yardstick from the start): where a call is shorter
+    than its host cost, the device waits for the host between the events,
+    so this reads host launch latency plus device time.
+    ``last_device_ms`` times the same calls after the device was first held
+    busy (~1 ms of spin per call), so the host has enqueued every call
+    before the first runs and the events time the device's work alone.
+    ``last_host_ms`` is the mean host time to enqueue one call.  With
+    ``flush``, a 64 MiB write between calls evicts the 50 MB L2, so a call
+    that the real path makes on cold data is timed cold."""
+
+    SPIN_CYCLES_PER_CALL = 2_000_000
 
     def __init__(self, torch) -> None:
         self.torch = torch
         self.scratch = torch.empty(64 << 20, dtype=torch.uint8,
                                    device="cuda")
+        self.last_device_ms = self.last_host_ms = None
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3,
                  flush: bool = False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
+        ms, _ = self._events(fn, iters, flush)
+        torch.cuda._sleep(self.SPIN_CYCLES_PER_CALL * iters)
+        self.last_device_ms, self.last_host_ms = self._events(fn, iters,
+                                                              flush)
+        return ms
+
+    def _events(self, fn, iters: int, flush: bool) -> tuple[float, float]:
+        torch = self.torch
         pairs = []
+        host = 0.0
         for _ in range(iters):
             if flush:
                 self.scratch.zero_()
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
+            t0 = time.perf_counter()
             fn()
+            host += time.perf_counter() - t0
             b.record()
             pairs.append((a, b))
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in pairs) / iters
+        return (sum(a.elapsed_time(b) for a, b in pairs) / iters,
+                host / iters * 1e3)
+
+    def into(self, row: dict, prefix: str, fn, **kw) -> None:
+        """``row[prefix + "ms"]`` and ``row[prefix + "device_ms"]``."""
+        row[prefix + "ms"] = self(fn, **kw)
+        row[prefix + "device_ms"] = self.last_device_ms
 
 
 def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -135,6 +170,13 @@ def max_err(torch, got, want, dtype: str, tol: float | None = None
     return float((g - w).abs().max())
 
 
+def flash_q_rows(torch, b: int, s: int, hq: int) -> int:
+    """q rows per CTA that the bf16 kernel's shape rule picks: 128 once
+    128-row CTAs alone fill every SM, else 64."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 128 if b * hq * -(-s // 128) >= sms else 64
+
+
 def flash_case(torch, ops, timer, gen, *, b, s, hq, hkv, d, window,
                dtype, time_it):
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -147,12 +189,15 @@ def flash_case(torch, ops, timer, gen, *, b, s, hq, hkv, d, window,
     torch.cuda.synchronize()
     row = {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d, "window": window,
            "dtype": dtype, "max_abs_err": max_err(torch, got, want, dtype)}
+    if dtype == "bfloat16":
+        row["q_rows"] = flash_q_rows(torch, b, s, hq)
     if time_it:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row["ms"] = timer(lambda: ops.flash_attention(q, k, v, causal=True))
-        row["plain_ms"] = timer(
-            lambda: flash_attention_plain(q, k, v, causal=True), iters=5)
-        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        timer.into(row, "", lambda: ops.flash_attention(q, k, v, causal=True))
+        row["host_ms"] = timer.last_host_ms
+        timer.into(row, "plain_", lambda: flash_attention_plain(
+            q, k, v, causal=True), iters=5)
+        timer.into(row, "library_", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
         pairs = s * (s + 1) // 2
         flops = 4.0 * d * hq * b * pairs
@@ -188,11 +233,12 @@ def paged_case(torch, ops, timer, gen, *, b, page, per_seq, hq, hkv, d,
         qd = q[:, :, None, :]
         pos = torch.arange(per_seq * page, device="cuda")
         mask = (pos[None, :] < lens[:, None].long())[:, None, None, :]
-        row["ms"] = timer(lambda: ops.paged_attention(q, kp, vp, table,
-                                                      lens), flush=True)
-        row["plain_ms"] = timer(lambda: paged_attention_plain(
+        timer.into(row, "", lambda: ops.paged_attention(q, kp, vp, table,
+                                                        lens), flush=True)
+        row["host_ms"] = timer.last_host_ms
+        timer.into(row, "plain_", lambda: paged_attention_plain(
             q, kp, vp, table, lens), iters=5, flush=True)
-        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        timer.into(row, "library_", lambda: F.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask, enable_gqa=True), flush=True)
         live = sum(lengths)
         elt = q.element_size()
@@ -243,16 +289,19 @@ def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
                                       SSD_TOL)),
            "max_abs_err_state": float((final - final_want).abs().max())}
     if time_it:
-        row["ms"] = timer(lambda: ops.ssd_scan(x, a, B, C, s0))
-        row["plain_ms"] = timer(lambda: ssd_scan_plain(x, a, B, C, s0),
-                                iters=5)
-        row["library_ms"] = None    # no single PyTorch call is the scan
+        timer.into(row, "", lambda: ops.ssd_scan(x, a, B, C, s0))
+        row["host_ms"] = timer.last_host_ms
+        timer.into(row, "plain_", lambda: ssd_scan_plain(x, a, B, C, s0),
+                   iters=5)
+        # no single PyTorch call is the scan
+        row["library_ms"] = row["library_device_ms"] = None
         flops, nbytes = ssd_work(b, l, h, p, n, init)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
     return row
 
 
 def phase_kernels(torch, ops, timer) -> dict:
+    from repro_torch.kernels.paged_attention import paged_plan
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -262,15 +311,29 @@ def phase_kernels(torch, ops, timer) -> dict:
         flash.append(flash_case(torch, ops, timer, gen, b=1, s=s, hq=16,
                                 hkv=8, d=128, window=0, dtype="bfloat16",
                                 time_it=True))
+        flash[-1]["model"] = "qwen3-0.6b"
     flash[-1]["main"] = True        # the largest bucket stands for flash
-    flash[-1]["model"] = "qwen3-0.6b"
     for kw in (dict(b=1, s=200, hq=16, hkv=8, d=128, window=0),   # ragged
                dict(b=2, s=256, hq=16, hkv=8, d=128, window=32),  # window
                dict(b=2, s=192, hq=8, hkv=2, d=64, window=0),     # G = 4
-               dict(b=1, s=130, hq=4, hkv=4, d=120, window=0)):   # D = 120
+               dict(b=1, s=130, hq=4, hkv=4, d=120, window=0),    # D = 120
+               # S not a multiple of either q block, windows that cross
+               # the 128-key KV blocks, D = 120 with a window
+               dict(b=1, s=333, hq=8, hkv=4, d=128, window=100),
+               dict(b=2, s=203, hq=4, hkv=2, d=120, window=70),
+               # enough heads for 128-row CTAs: at D = 64 (one box), and
+               # at D = 120 with a window crossing the KV blocks
+               dict(b=4, s=500, hq=16, hkv=4, d=64, window=0),
+               dict(b=4, s=333, hq=16, hkv=4, d=120, window=100)):
         for dtype in ("bfloat16", "float32"):
             flash.append(flash_case(torch, ops, timer, gen, dtype=dtype,
                                     time_it=False, **kw))
+    # bf16 at every head dim the tensor-core kernel pads or splits: one
+    # 64-wide box (64), two with zero-filled columns (112, 120), two (128)
+    for d in (64, 112, 120, 128):
+        flash.append(flash_case(torch, ops, timer, gen, b=1, s=257, hq=8,
+                                hkv=2, d=d, window=0, dtype="bfloat16",
+                                time_it=False))
     paged = []
     rng = random.Random(0)
     # serving path: 8 slots x 2048 positions in pages of 16, qwen3 heads,
@@ -289,8 +352,8 @@ def phase_kernels(torch, ops, timer) -> dict:
     for s in (64, 128, 256, 512, 1024):
         flash.append(flash_case(torch, ops, timer, gen, b=1, s=s, hq=hq,
                                 hkv=hkv, d=d, window=0, dtype="bfloat16",
-                                time_it=s == 1024))
-    flash[-1]["model"] = "zamba2-7b"
+                                time_it=True))
+        flash[-1]["model"] = "zamba2-7b"
     zamba_lens = sorted(rng.randrange(64, 1089) for _ in range(8))
     paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
                             per_seq=128, hq=hq, hkv=hkv, d=d,
@@ -298,7 +361,15 @@ def phase_kernels(torch, ops, timer) -> dict:
                             dtype="bfloat16", time_it=True))
     paged[-1]["model"] = "zamba2-7b"
     edge = [2048, 0, 1, 17, 333, 1024, 2047, 16]   # length 0, page + 1
+    split = paged_plan(8, 2, 16, 128, 128, 16).split
+    # exactly one split, one split + 1 (a second split of one token), two
+    # splits + 1, the full capacity (every split), 1 and 0
+    split_lens = [split, split + 1, 2 * split + 1, 2048, 1, 0]
     for dtype in ("bfloat16", "float32"):
+        paged.append(paged_case(torch, ops, timer, gen, b=6, page=16,
+                                per_seq=128, hq=32, hkv=2, d=128,
+                                lengths=split_lens, permute=True,
+                                dtype=dtype, time_it=False))   # G = 16
         paged.append(paged_case(torch, ops, timer, gen, b=8, page=16,
                                 per_seq=128, hq=16, hkv=8, d=128,
                                 lengths=edge, permute=True, dtype=dtype,
@@ -307,6 +378,11 @@ def phase_kernels(torch, ops, timer) -> dict:
                                 per_seq=4, hq=8, hkv=2, d=64,
                                 lengths=[128, 3, 33], permute=True,
                                 dtype=dtype, time_it=False))
+    # every variant of the bf16 kernel ran: one or two 64-column boxes of
+    # D, 64- or 128-row CTAs, each picked by the shape rule
+    variants = {(r["d"] > 64, r["q_rows"]) for r in flash if "q_rows" in r}
+    check(variants == {(x, y) for x in (False, True) for y in (64, 128)},
+          f"flash bf16 cases cover only the variants {sorted(variants)}")
     ssd = []
     # zamba2-7b's Mamba2 layers: b = 1, 112 heads, p = n = 64, f32, one
     # scan per prefill bucket; the largest bucket stands for the kernel
@@ -539,7 +615,18 @@ def phase_serve(torch, ops) -> dict:
 
 # ----------------------------------------------------------------------
 
+PHASES = ("kernels", "path", "serve")
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build "
+                         f"(default: all of {', '.join(PHASES)}; the "
+                         "kernels summary needs all)")
+    phases = ap.parse_args().phases.split(",")
+    if not set(phases) <= set(PHASES):
+        ap.error(f"unknown phase in {phases}")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script",
               file=sys.stderr)
@@ -561,20 +648,27 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "seconds": time.perf_counter() - t0, "ptxas": ptxas})
 
-    timer = Timer(torch)
-    t0 = time.perf_counter()
-    kern = phase_kernels(torch, ops, timer)
-    emit({"phase": "kernels", "gpu": smi,
-          "seconds": time.perf_counter() - t0, **kern})
-
-    t0 = time.perf_counter()
-    path = phase_path(torch, ops)
-    emit({"phase": "path", "seconds": time.perf_counter() - t0, **path})
-
-    t0 = time.perf_counter()
-    serve = phase_serve(torch, ops)
-    emit({"phase": "serve", "gpu": smi,
-          "seconds": time.perf_counter() - t0, **serve})
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if "kernels" in phases:
+        t0 = time.perf_counter()
+        kern = phase_kernels(torch, ops, Timer(torch))
+        emit({"phase": "kernels", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **kern})
+    if "path" in phases:
+        t0 = time.perf_counter()
+        path = phase_path(torch, ops)
+        emit({"phase": "path", "seconds": time.perf_counter() - t0, **path})
+    if "serve" in phases:
+        t0 = time.perf_counter()
+        serve = phase_serve(torch, ops)
+        emit({"phase": "serve", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **serve})
+    if tuple(phases) != PHASES:
+        # a partial run proves nothing about the port: no "ok" line
+        print(smi, flush=True)
+        emit({"partial": phases, "device": device})
+        return 0
 
     # launches on the main paths: each kernel's count summed over the
     # serve cases (each case's counts were set to 0 just before its run)
@@ -583,9 +677,12 @@ def main() -> int:
     summary = []
     for name, rows in kern.items():
         main_row = next(r for r in rows if r.get("main"))
+        timed = [r for r in rows if "model" in r and "ms" in r]
+        # the last timed row of each model is its serve shape (flash: the
+        # largest prefill bucket)
         by_model = {r["model"]: {k: r[k] for k in (
-            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-            for r in rows if "model" in r and "ms" in r}
+            "ms", "device_ms", "plain_ms", "plain_device_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by")} for r in timed}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "replaces_fn": REPLACES_FN[name],
@@ -596,12 +693,15 @@ def main() -> int:
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "main_shape_of": main_row["model"], "by_model": by_model})
+            "device_ms": main_row["device_ms"],
+            "plain_device_ms": main_row["plain_device_ms"],
+            "library_device_ms": main_row["library_device_ms"],
+            "main_shape_of": main_row["model"], "by_model": by_model,
+            "timed": [{k: r[k] for k in r if k not in (
+                "max_abs_err", "main", "lengths")} for r in timed]})
     emit({"kernels": summary})
     print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+    emit({"ok": True, "device": device})
     return 0
 
 

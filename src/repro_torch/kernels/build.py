@@ -10,6 +10,7 @@ loads as it is.  All missing libraries build in parallel, one ``nvcc`` per
 source, started together.
 
 Only the CUDA wrappers call into this module; importing it builds nothing.
+``current_stream`` gives them the stream to launch on.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -97,3 +100,11 @@ def library(name: str) -> ctypes.CDLL:
         (path,) = build((name,))
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]
+
+
+def current_stream(index: int) -> int:
+    """The handle of CUDA device ``index``'s current stream, for a C entry.
+    It reads the raw handle rather than building a ``torch.cuda.Stream``,
+    which costs several microseconds a call: a kernel's host cost is paid
+    on every layer of the decode step, and that step is host-bound."""
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -1,11 +1,15 @@
 """Flash attention on Hopper: the prefill kernel's wrapper and its plain
 PyTorch version.
 
-``flash_attention_cuda`` launches ``csrc/flash_attention.cu`` (one CTA per
-batch * q-head and 64-row q block, online softmax in f32, causal and window
-bounds cut the KV loop).  ``flash_attention_plain`` is the same function in
-plain PyTorch (``ref.flash_attention_ref``); the CPU path and the on-card
-comparison use it.  Callers go through ``ops.flash_attention``.
+``flash_attention_cuda`` launches ``csrc/flash_attention.cu``: for bf16 a
+tensor-core kernel (one CTA per batch * q-head and q block of 64 rows, or
+of 128 once such CTAs alone fill every SM; TMA loads of Q and of a ring of
+K/V stages, both products on wgmma, online softmax in f32 registers); for
+f32 an exact f32 SIMT kernel.
+Causal and window bounds cut the KV loop of both.  ``flash_attention_plain``
+is the same function in plain PyTorch (``ref.flash_attention_ref``); the CPU
+path and the on-card comparison use it.  Callers go through
+``ops.flash_attention``.
 """
 
 from __future__ import annotations
@@ -71,20 +75,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on 16-byte boundaries "
+                         "(TMA)")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        fn = _library().repro_flash_attention
-        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
-                    int(window), DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream().cuda_stream)
+    if skv == 0:
+        raise ValueError("no keys: k and v are empty")
+    # a device guard as torch.cuda.device is, at a third of its host cost
+    with torch.cuda._DeviceGuard(q.device.index):
+        status = _library().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            skv, hq, hkv, d, int(causal), int(window), DTYPE_CODES[q.dtype],
+            build.current_stream(q.device.index))
     if status != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {status}")
+        raise RuntimeError(f"flash attention kernel launch failed: error "
+                           f"{status} (CUDA error, or 1000 + the CUresult "
+                           "of a tensor map)")
     flash_attention_cuda.launches += 1
     return out
 

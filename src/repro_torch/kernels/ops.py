@@ -4,7 +4,9 @@ lie.
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises.  A CPU tensor goes to the kernel's plain PyTorch version.  There is
 no fallback from one to the other.  Both sides check their arguments the
-same way, so the CPU tests hold the model to what the kernels take.
+same way (the CUDA wrapper checks its own, once, as it is on the decode
+step's host-bound path), so the CPU tests hold the model to what the
+kernels take.
 
 ``launch_counts`` reads how many times each kernel was launched, and
 ``reset_launch_counts`` sets them to zero, so a run can show that its path
@@ -40,9 +42,9 @@ KERNELS = {"flash_attention": flash_attention_cuda,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
-    check_flash_args(q, k, v)
     if q.device.type == "cuda":
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    check_flash_args(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     raise ValueError(f"no flash attention for device {q.device}")
@@ -53,10 +55,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, Hq, D); k/v_pages: (P, page, Hkv, D); block_table
     (B, per_seq) int32; lengths (B,) int32 -> (B, Hq, D)."""
-    check_paged_args(q, k_pages, v_pages, block_table, lengths)
     if q.device.type == "cuda":
         return paged_attention_cuda(q, k_pages, v_pages, block_table,
                                     lengths)
+    check_paged_args(q, k_pages, v_pages, block_table, lengths)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_table,
                                      lengths)
@@ -69,9 +71,9 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n); init_state
     (b, h, p, n) or None; all f32 -> y (b, l, h, p), final state
     (b, h, p, n)."""
-    check_ssd_args(x, a, B, C, init_state, chunk)
     if x.device.type == "cuda":
         return ssd_scan_cuda(x, a, B, C, init_state, chunk)
+    check_ssd_args(x, a, B, C, init_state, chunk)
     if x.device.type == "cpu":
         return ssd_scan_plain(x, a, B, C, init_state, chunk)
     raise ValueError(f"no SSD scan for device {x.device}")

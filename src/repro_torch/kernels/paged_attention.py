@@ -1,18 +1,22 @@
-"""Paged decode attention on Hopper: the decode kernel's wrapper and its
-plain PyTorch version.
+"""Paged decode attention on Hopper: the decode kernel's wrapper, its
+host-side plan and its plain PyTorch version.
 
-``paged_attention_cuda`` launches ``csrc/paged_attention.cu`` (one CTA per
-sequence and KV head serving that group's G query heads, online softmax in
-f32 over 64-token tiles read through the block table, each tile's loads
-issued together).
-``paged_attention_plain`` is the same function in plain PyTorch
-(``ref.paged_attention_ref``); the CPU path and the on-card comparison use
-it.  Callers go through ``ops.paged_attention``.
+``paged_attention_cuda`` launches ``csrc/paged_attention.cu``: a grid over
+(KV head, sequence, split), each CTA serving the G query heads of its KV
+head over one split of ``split`` tokens, read in chunks whose page tiles
+are all in flight at once (cp.async); each CTA writes a partial (m, l, acc)
+and the last CTA of a (sequence, KV head) merges them in the same launch.
+``paged_plan`` fixes the split and the scratch from the cache's capacity
+alone (no read of ``lengths``).  ``paged_attention_plain`` is the same
+function in plain PyTorch (``ref.paged_attention_ref``); the CPU path and
+the on-card comparison use it.  Callers go through ``ops.paged_attention``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -21,6 +25,35 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES, check_head_dim
 from repro_torch.kernels.ref import paged_attention_ref as paged_attention_plain
 
 MAX_GROUP = 16   # query heads per KV head: accumulators per thread
+CHUNK = 128      # tokens the kernel loads at once in bf16 (half in f32)
+MIN_SPLIT = 128  # tokens per split, at least
+MAX_SPLITS = 64  # splits per sequence, at most
+
+
+@dataclass(frozen=True)
+class PagedPlan:
+    """How one launch cuts the work: ``n_splits`` splits of ``split``
+    tokens per sequence; f32 scratch ``partial_shape`` = (B, Hkv, n_splits,
+    G, D + 2), each head's unnormalised acc[D] then its m and l; and one
+    int32 counter per (sequence, KV head)."""
+    split: int
+    n_splits: int
+    partial_shape: tuple[int, int, int, int, int]
+    counters: int
+
+
+@functools.lru_cache(maxsize=64)
+def paged_plan(b: int, hkv: int, g: int, d: int, per_seq: int,
+               page: int) -> PagedPlan:
+    """The plan from the cache's capacity (``per_seq * page`` tokens), G
+    and D alone: both dtypes share it, as the partials are f32.  Splits of
+    MIN_SPLIT tokens, grown (in whole chunks) where the capacity would need
+    more than MAX_SPLITS."""
+    capacity = per_seq * page
+    split = max(MIN_SPLIT, -(-capacity // MAX_SPLITS))
+    split = -(-split // CHUNK) * CHUNK
+    n_splits = max(1, -(-capacity // split))
+    return PagedPlan(split, n_splits, (b, hkv, n_splits, g, d + 2), b * hkv)
 
 
 def check_paged_args(q: torch.Tensor, k_pages: torch.Tensor,
@@ -63,10 +96,23 @@ def _library() -> ctypes.CDLL:
     lib = build.library("paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
+
+
+# one zeroed counter buffer per device: the kernel leaves it zeroed, so no
+# launch clears it between calls (one stream at a time uses it)
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device] = buf
+    return buf
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
@@ -81,18 +127,28 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_cuda needs CUDA tensors, got "
                          f"{q.device}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k/v_pages must start on 16-byte boundaries "
+                         "(16-byte cp.async)")
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
+    per_seq = block_table.shape[1]
+    plan = paged_plan(b, hkv, hq // hkv, d, per_seq, page)
+    partials = torch.empty(plan.partial_shape, dtype=torch.float32,
+                           device=q.device)
+    counters = _counter_buffer(q.device, plan.counters)
+    # a device guard as torch.cuda.device is, at a third of its host cost
+    with torch.cuda._DeviceGuard(q.device.index):
         fn = _library().repro_paged_attention
         status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     block_table.data_ptr(), lengths.data_ptr(),
-                    out.data_ptr(), b, hq, hkv, d, page,
-                    block_table.shape[1], DTYPE_CODES[q.dtype],
-                    torch.cuda.current_stream().cuda_stream)
+                    out.data_ptr(), partials.data_ptr(),
+                    counters.data_ptr(), b, hq, hkv, d, page, per_seq,
+                    plan.split, plan.n_splits, DTYPE_CODES[q.dtype],
+                    build.current_stream(q.device.index))
     if status != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {status}")

