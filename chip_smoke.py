@@ -4,7 +4,9 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 (``--phases kernels`` runs the build and only the named phases, for a
 quick check of the kernels, and ends with {"partial": [...]}; only the
-full run proves the port and prints the "ok" line.)
+full run proves the port and prints the "ok" line.  ``--ssd-tree SRC``
+only times the SSD scan of the package under SRC, another tree's src/, at
+the prefill buckets, to compare two commits in one call.)
 
 Phases, each printing one JSON line:
   build    build the CUDA kernels with nvcc from the checkout's sources
@@ -35,6 +37,7 @@ import argparse
 import dataclasses
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +51,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_TOL = 2e-4      # the JAX package's own SSD scan tolerance
+SSD_BUCKETS = (64, 128, 256, 512, 1024)   # the engine's prefill buckets
 
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:137",
@@ -253,7 +257,9 @@ def ssd_work(b, l, h, p, n, init: bool) -> tuple[float, float]:
     """FLOP and bytes the SSD scan needs on these shapes: C B^T once per
     batch and chunk (B and C are shared by the heads), G x, C S^T and
     x^T B per head, lower triangles only, a ragged last chunk as long as
-    it is; every input read once and every output written once."""
+    it is; every input read once and every output written once.  Its bound
+    takes the f32 peak (PEAK_FLOPS["float32"]): the kernel's products are
+    IEEE f32 FMAs."""
     flops = 0.0
     for c0 in range(0, l, 128):
         lc = min(128, l - c0)
@@ -265,11 +271,10 @@ def ssd_work(b, l, h, p, n, init: bool) -> tuple[float, float]:
     return flops, nbytes
 
 
-def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
+def ssd_inputs(torch, gen, b, l, h, p, n, init):
     """Inputs as a Mamba2 layer makes them: dt = softplus(N(0, 1)), the
     log-decay a = -dt * linspace(1, 16, h), x = N(0, 1) * dt, B and C
-    N(0, 1); y and the final state against the plain version."""
-    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    N(0, 1), and an initial state N(0, 1) or None."""
     dt = torch.nn.functional.softplus(
         torch.randn((b, l, h), generator=gen, device="cuda"))
     a = -dt * torch.linspace(1.0, 16.0, h, device="cuda")
@@ -279,11 +284,21 @@ def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
             for _ in range(2))
     s0 = (torch.randn((b, h, p, n), generator=gen, device="cuda")
           if init else None)
+    return x, a, B, C, s0
+
+
+def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
+    """``ssd_inputs``; y and the final state against the plain version."""
+    from repro_torch.kernels.ssd_scan import ssd_plan, ssd_scan_plain
+    x, a, B, C, s0 = ssd_inputs(torch, gen, b, l, h, p, n, init)
     y, final = ops.ssd_scan(x, a, B, C, s0)
     y_want, final_want = ssd_scan_plain(x, a, B, C, s0)
     torch.cuda.synchronize()
+    plan = ssd_plan(b, l, h, p, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     row = {"b": b, "l": l, "h": h, "p": p, "n": n, "init_state": init,
-           "dtype": "float32",
+           "dtype": "float32", "heads_per_cta": plan.heads,
+           "p_split": plan.split,
            "max_abs_err": max(max_err(torch, y, y_want, "float32", SSD_TOL),
                               max_err(torch, final, final_want, "float32",
                                       SSD_TOL)),
@@ -385,16 +400,25 @@ def phase_kernels(torch, ops, timer) -> dict:
           f"flash bf16 cases cover only the variants {sorted(variants)}")
     ssd = []
     # zamba2-7b's Mamba2 layers: b = 1, 112 heads, p = n = 64, f32, one
-    # scan per prefill bucket; the largest bucket stands for the kernel
-    for l in (64, 128, 256, 512, 1024):
+    # scan per prefill bucket with a state, as the engine calls it; the
+    # largest bucket stands for the kernel
+    for l in SSD_BUCKETS:
         ssd.append(ssd_case(torch, ops, timer, gen, b=1, l=l, h=112, p=64,
-                            n=64, init=False, time_it=l == 1024))
+                            n=64, init=True, time_it=True))
+        ssd[-1]["model"] = "zamba2-7b"
     ssd[-1]["main"] = True
-    ssd[-1]["model"] = "zamba2-7b"
-    for kw in (dict(b=1, l=200, h=112, p=64, n=64, init=True),  # ragged
-               dict(b=2, l=256, h=3, p=32, n=16, init=True),    # small
+    for kw in (dict(b=1, l=2048, h=112, p=64, n=64, init=True),  # max_seq
+               dict(b=1, l=200, h=112, p=64, n=64, init=True),   # ragged
+               dict(b=2, l=256, h=3, p=32, n=16, init=True),     # small
                dict(b=1, l=384, h=112, p=64, n=64, init=False)):
         ssd.append(ssd_case(torch, ops, timer, gen, time_it=False, **kw))
+    # every plan the shape rule picks ran: 1, 2 and 4 heads per CTA, p
+    # whole and in halves
+    heads = {r["heads_per_cta"] for r in ssd}
+    splits = {r["p_split"] for r in ssd}
+    check(heads == {1, 2, 4} and splits == {1, 2},
+          f"SSD cases cover only heads per CTA {sorted(heads)} and p "
+          f"splits {sorted(splits)}")
     return {"flash_attention": flash, "paged_attention": paged,
             "ssd_scan": ssd}
 
@@ -477,7 +501,9 @@ def profile_calls(torch, fn, n: int) -> dict:
     """Host time per call of ``fn`` without and with ``torch.profiler``,
     and, from the profiled run, the device time per call summed over the
     CUDA kernels, the busy share (device time over the unprofiled host
-    time) and the kernels that take the most device time."""
+    time), the kernels that take the most device time, and the SSD scan's
+    kernels (names that begin ``ssd_``; one scan starts several) summed
+    into one item."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -501,12 +527,20 @@ def profile_calls(torch, fn, n: int) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
     device_ms = sum(dev_us(e) for e in kernels) / n / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    ssd = [e for e in kernels if "ssd_" in e.key]
+    ssd_ms: dict[str, float] = {}
+    for e in ssd:
+        name = re.search(r"ssd_\w+", e.key).group()
+        ssd_ms[name] = ssd_ms.get(name, 0.0) + dev_us(e) / n / 1e3
     return {"calls": n, "host_ms": wall_ms, "host_ms_profiled": wall_prof_ms,
             "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "kernel_launches": sum(e.count for e in kernels) / n,
             "top": [{"kernel": e.key[:70], "ms": dev_us(e) / n / 1e3,
-                     "launches": e.count / n} for e in top]}
+                     "launches": e.count / n} for e in top],
+            "ssd": {"ms": sum(dev_us(e) for e in ssd) / n / 1e3,
+                    "kernel_launches": sum(e.count for e in ssd) / n,
+                    "kernels": ssd_ms}}
 
 
 def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
@@ -615,6 +649,36 @@ def phase_serve(torch, ops) -> dict:
 
 # ----------------------------------------------------------------------
 
+def time_ssd_tree(src: Path) -> int:
+    """The SSD scan of the package under ``src`` (another tree's src/, such
+    as a parent commit unpacked beside this checkout) at zamba2-7b's prefill
+    buckets, with the kernels phase's inputs, check and Timer; one JSON
+    line.  Two trees compare only when timed in one call on one card."""
+    sys.path.insert(0, str(src))
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for l in SSD_BUCKETS:
+        x, a, B, C, s0 = ssd_inputs(torch, gen, 1, l, 112, 64, 64, True)
+        y, final = ops.ssd_scan(x, a, B, C, s0)
+        y_want, final_want = ssd_scan_plain(x, a, B, C, s0)
+        torch.cuda.synchronize()
+        row = {"l": l, "max_abs_err": max(
+            max_err(torch, y, y_want, "float32", SSD_TOL),
+            max_err(torch, final, final_want, "float32", SSD_TOL))}
+        timer.into(row, "", lambda: ops.ssd_scan(x, a, B, C, s0))
+        row["host_ms"] = timer.last_host_ms
+        rows.append(row)
+    emit({"ssd_tree": str(src), "gpu": smi_line(), "rows": rows})
+    return 0
+
+
 PHASES = ("kernels", "path", "serve")
 
 
@@ -624,7 +688,13 @@ def main() -> int:
                     help="comma-separated phases to run after the build "
                          f"(default: all of {', '.join(PHASES)}; the "
                          "kernels summary needs all)")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--ssd-tree", metavar="SRC", type=Path,
+                    help="only time the SSD scan of the package under SRC "
+                         "(another tree's src/) at the prefill buckets")
+    args = ap.parse_args()
+    if args.ssd_tree:
+        return time_ssd_tree(args.ssd_tree.resolve())
+    phases = args.phases.split(",")
     if not set(phases) <= set(PHASES):
         ap.error(f"unknown phase in {phases}")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():

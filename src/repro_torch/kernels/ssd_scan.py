@@ -1,18 +1,23 @@
-"""Mamba2 SSD chunk scan on Hopper: the prefill kernel's wrapper and its
-plain PyTorch version.
+"""Mamba2 SSD chunk scan on Hopper: the prefill kernel's wrapper, its
+host-side plan and its plain PyTorch version.
 
-``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu`` (one CTA per (batch, head)
-walking the 128-step chunks in order, the (p, n) state carried in shared
-memory in f32).  ``ssd_scan_plain`` is the same function in plain PyTorch:
-the JAX model's chunked form (``ssd_chunked``) with its sum order, padding a
-ragged length to whole chunks as ``mamba2_fwd`` does.  Both take an initial
-state and return the final one, which prefill-with-state needs.  Callers go
-through ``ops.ssd_scan``.
+``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``: the reference's four steps
+as three CUDA kernels on one stream (two for a single chunk), every chunk
+and head in parallel: each chunk's cumulative decay and own state, with
+C B^T once per batch and chunk; the short recurrence across chunks; the
+outputs.  ``ssd_plan`` picks the heads per CTA and the p split from the
+shape and the SM count alone.  ``ssd_scan_plain`` is the same function in
+plain PyTorch: the JAX model's chunked form (``ssd_chunked``) with its sum
+order, padding a ragged length to whole chunks as ``mamba2_fwd`` does.
+Both take an initial state and return the final one, which
+prefill-with-state needs.  Callers go through ``ops.ssd_scan``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -21,6 +26,8 @@ from repro_torch.kernels import build
 CHUNK = 128       # steps per chunk: the kernel's compile-time tile
 MAX_DIM = 64      # head dim p and state dim n: shared-memory tiles
 SCAN_BLOCK = 16   # block of the reference's cumulative sum (see _cumsum)
+MAX_HEADS = 4     # heads per CTA of the output pass
+CB_FLOATS = 36 * 256  # one chunk's C B^T, as the output pass's threads hold it
 
 
 def check_ssd_args(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
@@ -163,11 +170,53 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 # the CUDA kernel
 # ----------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class SsdPlan:
+    """How the output pass cuts the work: one CTA per (batch, chunk, group
+    of ``heads`` heads, part of p), p cut into ``split`` equal parts."""
+    heads: int
+    split: int
+
+
+SETUP = 0.5  # a CTA's set-up (its chunk's C, C B^T and cs), in heads
+
+
+@functools.lru_cache(maxsize=64)
+def ssd_plan(b: int, l: int, h: int, p: int, sms: int) -> SsdPlan:
+    """The plan from the shape and the SM count alone.  The output pass
+    runs one CTA per SM at a time, so a plan costs the busiest SM's waves
+    of CTAs times what one CTA does: its heads, over the p split, plus its
+    set-up.  The cheapest plan wins; among equals, p whole and more heads
+    per CTA (the chunk's C and C B^T loaded for more heads)."""
+    chunks = -(-l // CHUNK)
+    best = None
+    for split in (1, 2):
+        if p % (4 * split):
+            continue
+        for heads in (MAX_HEADS, 2, 1):
+            ctas = b * chunks * -(-h // heads) * split
+            cost = -(-ctas // sms) * (heads / split + SETUP)
+            if best is None or cost < best[0]:
+                best = (cost, SsdPlan(heads, split))
+    return best[1]
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(index: int) -> int:
+    n = _sm_counts.get(index)
+    if n is None:
+        n = torch.cuda.get_device_properties(index).multi_processor_count
+        _sm_counts[index] = n
+    return n
+
+
 def _library() -> ctypes.CDLL:
     lib = build.library("ssd_scan")
     fn = lib.repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -176,7 +225,9 @@ def _library() -> ctypes.CDLL:
 def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                   C: torch.Tensor, init_state: torch.Tensor | None = None,
                   chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on the current stream; never synchronises.
+    """Launch the CUDA kernels on the current stream; never synchronises.
+    One call counts as one launch (it starts three CUDA kernels, two
+    for a single chunk).
 
     x: (b, l, h, p); a: (b, l, h); B/C: (b, l, n); init_state (b, h, p, n)
     or None for zeros; all f32 -> y (b, l, h, p), final state (b, h, p, n).
@@ -185,19 +236,36 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got "
                          f"{x.device}")
+    tensors = (x, B, C) if init_state is None else (x, B, C, init_state)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("SSD scan x, B, C and init_state must be 16-byte "
+                         "aligned (the kernel copies 16 bytes at a time)")
     b, l, h, p = x.shape
     n = B.shape[-1]
     y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if final.numel() == 0:
         return y, final
+    index = x.device.index
+    plan = ssd_plan(b, l, h, p, _sm_count(index))
+    chunks = -(-l // CHUNK)
+    # scratch, one allocation: each chunk's state as S^T (then the state
+    # before it), each chunk's cumulative log-decay, each chunk's C B^T;
+    # every part a multiple of 16 bytes
+    sizes = (b * chunks * h * n * p, b * chunks * h * CHUNK,
+             b * chunks * CB_FLOATS)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    states = scratch.data_ptr()
+    cs = states + 4 * sizes[0]
+    cb = cs + 4 * sizes[1]
     # a device guard as torch.cuda.device is, at a third of its host cost
-    with torch.cuda._DeviceGuard(x.device.index):
+    with torch.cuda._DeviceGuard(index):
         fn = _library().repro_ssd_scan
         status = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
-                    y.data_ptr(), final.data_ptr(), b, l, h, p, n,
-                    build.current_stream(x.device.index))
+                    y.data_ptr(), final.data_ptr(), states, cs, cb, b, l, h,
+                    p, n, plan.heads, plan.split,
+                    build.current_stream(index))
     if status != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error "
                            f"{status}")
