@@ -22,6 +22,14 @@ Phases, each printing one JSON line:
   serve    behind InferenceEngine with telemetry and mitigation, full width
            and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
            then zamba2-7b serving 8
+  control  the DPU closed loop of examples/serve_with_dpu_telemetry.py at
+           full width: qwen3-0.6b (bf16, seeded weights) from static
+           batching, telemetry over the modeled wire into the DPU sidecar,
+           traced; held to the same loop on the CPU (every batch, report,
+           sidecar report and incident equal); then alternating runs under
+           dpu and instant control for the loop's host cost
+  launch   python -m repro_torch.launch.serve on the card and with
+           --device cpu: equal printed lines and reports
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -36,6 +44,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import random
 import re
 import subprocess
@@ -648,6 +657,227 @@ def phase_serve(torch, ops) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 5: the DPU closed loop at full width
+# ----------------------------------------------------------------------
+
+WALL_CLOCK = ("ns_per_event", "ns_per_event_by_detector")
+# examples/serve_with_dpu_telemetry.py's engine
+LOOP = dict(max_slots=4, max_seq=128, n_pages=256, telemetry=True,
+            mitigate=True)
+
+
+def example_requests(vocab: int) -> list:
+    """The example's workload: 16 requests at t=0 with 8-token prompts, 200
+    new tokens for every fourth (over max_seq 128: the ring wraps) and 4
+    for the others."""
+    from repro_torch.serving import ServeRequest
+    rng = random.Random(7)
+    return [ServeRequest(req_id=i, arrival=0.0,
+                         prompt=[rng.randrange(vocab) for _ in range(8)],
+                         max_new_tokens=200 if i % 4 == 0 else 4)
+            for i in range(16)]
+
+
+def without_wall_clock(rep: dict) -> dict:
+    return {**rep, "telemetry": {k: v for k, v in rep["telemetry"].items()
+                                 if k not in WALL_CLOCK}}
+
+
+def loop_run(torch, model, observe: bool = False, **kw) -> dict:
+    """The example's workload through one engine from static batching, with
+    ``LOOP`` updated by ``kw``.  The host clock times every decode step and
+    prefill (each ends in a device-to-host copy) and every telemetry flush
+    (the hand-off to the plane or to the sidecar, and the sidecar's
+    advance: the loop's host cost).  With ``observe``, also what the loop
+    observed (every batch into the sidecar, its report, the tracer's
+    counters and incidents) and one finite flag per model call."""
+    from repro_torch.core.events import BATCH_COLUMNS
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    eng = InferenceEngine(model, EngineConfig(**{**LOOP, **kw}))
+    eng.sched.set_continuous(False)
+    reqs = example_requests(model.cfg.vocab)
+    spent = {"prefill": 0.0, "decode": 0.0, "flush": 0.0}
+    calls = dict.fromkeys(spent, 0)
+
+    def timed(fn, name):
+        def inner(*args):
+            s = time.perf_counter()
+            out = fn(*args)
+            spent[name] += time.perf_counter() - s
+            calls[name] += 1
+            return out
+        return inner
+    eng._prefill = timed(eng._prefill, "prefill")
+    eng._step = timed(eng._step, "decode")
+    eng._flush_telemetry = timed(eng._flush_telemetry, "flush")
+    sink, finite = [], []
+    if observe:
+        def checked(fn):
+            def inner(*args):
+                out = fn(*args)
+                finite.append(torch.isfinite(out[0]).all())
+                return out
+            return inner
+        model.prefill = checked(model.prefill)
+        model.decode_step = checked(model.decode_step)
+        if eng.dpu is not None:
+            observe_batch = eng.dpu.observe_batch
+
+            def tap(batch):      # the wire's input, as the engine sent it
+                sink.append({c: getattr(batch, c).tolist()
+                             for c in BATCH_COLUMNS})
+                observe_batch(batch)
+            eng.dpu.observe_batch = tap
+    t0 = time.perf_counter()
+    rep = eng.run(reqs, max_steps=800)
+    wall = time.perf_counter() - t0
+    if observe:
+        del model.prefill, model.decode_step
+    check(rep["completed"] == len(reqs), f"control loop on "
+          f"{model.device}: completed {rep['completed']} of {len(reqs)}")
+    check(rep["tokens"] == sum(r.max_new_tokens for r in reqs),
+          f"control loop on {model.device}: token count mismatch")
+    tel = rep["telemetry"]
+    out = {"report": rep, "eng": eng, "finite": finite,
+           "times": {"control": eng.cfg.control, "steps": rep["steps"],
+                     "wall_s": wall,
+                     "ms_per_decode_step": spent["decode"] / rep["steps"]
+                     * 1e3,
+                     "ms_per_prefill": spent["prefill"] / calls["prefill"]
+                     * 1e3,
+                     "ms_per_flush": spent["flush"] / calls["flush"] * 1e3,
+                     "flushes": calls["flush"],
+                     "ns_per_event": tel["ns_per_event"],
+                     "ns_per_event_by_detector":
+                         tel["ns_per_event_by_detector"]}}
+    if observe:
+        out["observed"] = {
+            "report": without_wall_clock(rep), "sink": sink,
+            "dpu": eng.dpu.report() if eng.dpu is not None else None,
+            "counters": eng.tracer.counters if eng.tracer else None,
+            "incidents": eng.tracer.reports() if eng.tracer else None}
+    return out
+
+
+def phase_control(torch, ops) -> dict:
+    """The closed loop on the card, held to the same loop on the CPU, then
+    the loop's host cost under dpu and instant control in alternating
+    runs."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    cfg = ARCHS["qwen3-0.6b"]
+    model = build_model(cfg, device="cuda", seed=0)
+    # the CPU's loop: the reduced model with the full model's vocabulary,
+    # so the D2H events (4 bytes a logit) are the card's sizes too
+    small = build_model(dataclasses.replace(cfg.reduced(), vocab=cfg.vocab),
+                        device="cpu", seed=0)
+    ops.reset_launch_counts()
+    card = loop_run(torch, model, observe=True, control="dpu", trace=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    eng = card["eng"]
+    prefills, steps = eng.stats["prefills"], card["report"]["steps"]
+    want = kernel_launches(cfg, prefills, steps)
+    check(counts == want, f"control loop: launches {counts}, want {want} "
+          f"for {prefills} prefills and {steps} steps")
+    check(bool(torch.stack(card["finite"]).all()), "control loop: logits "
+          "not finite")
+    cpu = loop_run(torch, small, observe=True, control="dpu", trace=True)
+    for key, got in card["observed"].items():
+        check(got == cpu["observed"][key], f"control loop: {key} on the "
+              "card differs from the CPU's")
+    actions = [a for _, a, _ in card["report"]["telemetry"]["actions"]]
+    sidecar = eng.dpu.report()
+    check("inflight_remap" in actions, f"control loop: actions {actions} "
+          "lack inflight_remap")
+    check(sidecar["commands"]["applied"] >= 1, "control loop: no command "
+          "applied through the bus")
+    static = loop_run(torch, small, mitigate=False)
+    check(steps < static["report"]["steps"], f"control loop: {steps} "
+          f"steps, static batching {static['report']['steps']}")
+    # the loop's host cost: dpu and instant control in alternating runs
+    runs = [loop_run(torch, model, control=c)["times"]
+            for c in ("instant", "dpu", "dpu", "instant", "instant", "dpu")]
+    cost = {}
+    for metric in ("ms_per_decode_step", "ms_per_prefill", "ms_per_flush",
+                   "ns_per_event"):
+        by = {c: [r[metric] for r in runs if r["control"] == c]
+              for c in ("dpu", "instant")}
+        # resolved only where every run of one control reads above every
+        # run of the other
+        cost[metric] = {**by, "resolved": min(by["dpu"]) > max(
+            by["instant"]) or max(by["dpu"]) < min(by["instant"])}
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "engine": {**LOOP, "control": "dpu", "trace": True,
+                      "static_batching": True},
+           "requests": len(example_requests(cfg.vocab)),
+           "completed": card["report"]["completed"], "prefills": prefills,
+           "steps": steps, "static_steps_cpu": static["report"]["steps"],
+           "tokens": card["report"]["tokens"], "launches": counts,
+           "events": card["report"]["telemetry"]["events"],
+           "findings_by_row": card["report"]["telemetry"]["findings_by_row"],
+           "actions": card["report"]["telemetry"]["actions"],
+           "sidecar": sidecar, "tracer_counters": eng.tracer.counters,
+           # simulated seconds; an engine run has no fault start, so the
+           # TTM phases are null and the milestones and span times say
+           # where the loop's time went
+           "incidents_sim_s": [
+               {"incident_id": r["incident_id"], "row": r["row"],
+                "closed": r["closed"], "ttm": r["ttm"],
+                "milestones": r["milestones"],
+                "timeline": [(e["ts"], e["phase"], e["name"])
+                             for e in r["timeline"]]}
+               for r in eng.tracer.reports()],
+           "checked_run": card["times"], "runs": runs, "host_cost": cost}
+    del card, cpu, eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 6: the serve launcher on the card and on the CPU
+# ----------------------------------------------------------------------
+
+def phase_launch() -> dict:
+    """``python -m repro_torch.launch.serve`` as a user runs it (the card
+    is its default device), and with ``--device cpu``: both must serve
+    24/24 and print the same lines and report, wall-clock keys aside."""
+    args = ["--arch", "qwen3-0.6b", "--requests", "24", "--rate", "200",
+            "--report"]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else []))}
+    runs = {}
+    for device, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", *args,
+             *extra], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0, f"launcher on {device} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        head, _, body = proc.stdout.partition("\n{")
+        rep = json.loads("{" + body)
+        lines = head.splitlines()
+        check(len(lines) == 2 and "24/24 done" in lines[0]
+              and lines[1].startswith("[telemetry]"),
+              f"launcher on {device} printed {lines}")
+        check(rep["completed"] == 24, f"launcher on {device}: completed "
+              f"{rep['completed']} of 24")
+        runs[device] = {"seconds": time.perf_counter() - t0,
+                        "lines": lines, "report": without_wall_clock(rep),
+                        "ns_per_event": rep["telemetry"]["ns_per_event"]}
+    check(runs["cuda"]["lines"] == runs["cpu"]["lines"],
+          "launcher: the card's printed lines differ from the CPU's")
+    check(runs["cuda"]["report"] == runs["cpu"]["report"],
+          "launcher: the card's report differs from the CPU's")
+    return {"argv": args, "lines": runs["cuda"]["lines"],
+            "steps": runs["cuda"]["report"]["steps"],
+            "events": runs["cuda"]["report"]["telemetry"]["events"],
+            **{f"{d}_seconds": r["seconds"] for d, r in runs.items()}}
+
+
+# ----------------------------------------------------------------------
 
 def time_ssd_tree(src: Path) -> int:
     """The SSD scan of the package under ``src`` (another tree's src/, such
@@ -679,7 +909,7 @@ def time_ssd_tree(src: Path) -> int:
     return 0
 
 
-PHASES = ("kernels", "path", "serve")
+PHASES = ("kernels", "path", "serve", "control", "launch")
 
 
 def main() -> int:
@@ -734,6 +964,16 @@ def main() -> int:
         serve = phase_serve(torch, ops)
         emit({"phase": "serve", "gpu": smi,
               "seconds": time.perf_counter() - t0, **serve})
+    if "control" in phases:
+        t0 = time.perf_counter()
+        control = phase_control(torch, ops)
+        emit({"phase": "control", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **control})
+    if "launch" in phases:
+        t0 = time.perf_counter()
+        launch = phase_launch()
+        emit({"phase": "launch", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **launch})
     if tuple(phases) != PHASES:
         # a partial run proves nothing about the port: no "ok" line
         print(smi, flush=True)
@@ -741,8 +981,10 @@ def main() -> int:
         return 0
 
     # launches on the main paths: each kernel's count summed over the
-    # serve cases (each case's counts were set to 0 just before its run)
-    launches = {name: sum(c["launches"][name] for c in serve["cases"])
+    # serve cases and the control loop (each run's counts were set to 0
+    # just before it)
+    launches = {name: sum(c["launches"][name]
+                          for c in serve["cases"] + [control])
                 for name in kern}
     summary = []
     for name, rows in kern.items():

@@ -1,11 +1,23 @@
-"""Serving substrate: paged KV accounting, continuous batching and the
-telemetry-integrated inference engine."""
+"""Serving substrate: paged KV accounting, continuous batching, telemetry-
+integrated inference engine, and the cross-replica (data-parallel) router."""
 from repro_torch.serving.engine import EngineConfig, InferenceEngine
 from repro_torch.serving.kvcache import PagedKVPool
-from repro_torch.serving.scheduler import (
-    Scheduler,
-    SchedulerConfig,
-    ServeRequest,
+from repro_torch.serving.router import (
+    POLICIES,
+    HierarchicalView,
+    NodeSnapshot,
+    ReplicaSet,
+    ReplicaSnapshot,
+    RequestInfo,
+    Router,
+    RouterPolicy,
+    RouterView,
+    RoutingDecision,
+    make_policy,
 )
-__all__ = ["EngineConfig", "InferenceEngine", "PagedKVPool", "Scheduler",
-           "SchedulerConfig", "ServeRequest"]
+from repro_torch.serving.scheduler import Scheduler, SchedulerConfig, ServeRequest
+__all__ = ["EngineConfig", "HierarchicalView", "InferenceEngine",
+           "NodeSnapshot", "PagedKVPool", "POLICIES",
+           "ReplicaSet", "ReplicaSnapshot", "RequestInfo", "Router",
+           "RouterPolicy", "RouterView", "RoutingDecision", "Scheduler",
+           "SchedulerConfig", "ServeRequest", "make_policy"]

@@ -31,8 +31,10 @@ from repro_torch.core.detectors import (
 )
 from repro_torch.core.events import EventBatchBuilder, EventKind
 from repro_torch.core.telemetry import TelemetryPlane
+from repro_torch.dpu import DPUParams, DPUSidecar
 from repro_torch.models import Model
 from repro_torch.models.model import CACHE_BATCH_AXIS
+from repro_torch.obs import FlightRecorder, Tracer
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.scheduler import (
     Scheduler,
@@ -50,10 +52,14 @@ class EngineConfig:
     node: int = 0
     telemetry: bool = True
     mitigate: bool = True
-    # "instant" -- in-process MitigationController; "dpu" (telemetry over a
-    # modeled transport into a DPU sidecar) is not ported yet
+    # "instant" -- in-process MitigationController;
+    # "dpu"     -- telemetry crosses a modeled transport into a DPUSidecar
+    #              and mitigation commands ride the command bus back
     control: str = "instant"
-    # causal tracing of the control loop: not ported yet
+    dpu: DPUParams | None = None     # sidecar parameters override
+    dpu_seed: int = 0                # sidecar wire RNG (XORed with node)
+    # observe-only causal tracing (repro_torch.obs): spans for every finding
+    # / policy decision / bus exchange / actuation on this engine's loop
     trace: bool = False
 
 
@@ -69,23 +75,39 @@ class InferenceEngine:
         self.plane = plane
         if self.plane is None and self.cfg.telemetry:
             self.plane = TelemetryPlane(n_nodes=1, mitigate=self.cfg.mitigate)
+        # telemetry sink: the plane directly (instant) or a DPU sidecar
+        # whose command bus actuates this engine (dpu)
         if self.cfg.control not in ("instant", "dpu"):
             raise ValueError(
                 f"unknown EngineConfig.control {self.cfg.control!r} "
                 "(expected 'instant' or 'dpu')")
+        self.dpu = None
+        self._sink = self.plane
         if self.plane is not None and self.cfg.control == "dpu":
-            raise NotImplementedError(
-                "control='dpu' needs the DPU sidecar (the dpu package), "
-                "which is not ported yet; use control='instant'")
-        if self.plane is not None and self.cfg.trace:
-            raise NotImplementedError(
-                "trace=True needs the tracer and flight recorder (the obs "
-                "package), which are not ported yet")
-        if self.plane is not None and self.plane.controller is not None:
+            # per-replica wire seed: correlated loss across a ReplicaSet's
+            # engines would be an accidental common-mode failure.  The
+            # sidecar takes the plane's controller away, so the instant
+            # controller is bound only in the other branch.
+            self.dpu = DPUSidecar(self.plane, self.cfg.dpu, engine=self,
+                                  seed=self.cfg.dpu_seed ^ self.cfg.node,
+                                  mitigate=self.cfg.mitigate)
+            self._sink = self.dpu
+        elif self.plane is not None and self.plane.controller is not None:
             self.plane.controller.engine = self
-        # observability hooks, filled in once the tracer is ported
+        # observability (observe-only; engine runs have no FaultSpec, so
+        # incidents open on the first finding and never auto-close)
         self.tracer = None
         self.recorder = None
+        if self.cfg.trace and self.plane is not None:
+            self.recorder = FlightRecorder()
+            self.tracer = Tracer(recorder=self.recorder)
+            if self.dpu is not None:
+                self.dpu.attach_tracer(self.tracer, "primary",
+                                       recorder=self.recorder)
+            else:
+                self.plane.tracer = self.tracer
+                self.plane.trace_source = "engine"
+                self.plane.recorder = self.recorder
         self.slot_cache = model.init_cache(self.cfg.max_slots,
                                            self.cfg.max_seq,
                                            self.cfg.page_size)
@@ -107,6 +129,8 @@ class InferenceEngine:
 
     def apply_action(self, action: str, node: int, detail: dict) -> bool:
         if self.tracer is not None:
+            # the live engine has no fault oracle, so no recovery flip --
+            # the apply is recorded on the open incident's span tree
             self.tracer.on_apply(action, node, self.clock, False, False,
                                  "engine")
         if action == "inflight_remap":
@@ -155,7 +179,9 @@ class InferenceEngine:
         if len(self._pending):
             batch = self._pending.build(sort=True)
             self._pending.clear()
-            self.plane.observe_batch(batch)
+            self._sink.observe_batch(batch)
+        if self.dpu is not None:
+            self.dpu.advance(self.clock)
 
     def _admit_loop(self) -> None:
         while True:

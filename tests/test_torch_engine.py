@@ -1,11 +1,15 @@
 """The port's InferenceEngine against the JAX package's, with the same
 weights, on the workloads of tests/test_system.py, of
-tests/test_serving_training.py::TestInferenceEngine (instant control) and of
-examples/serve_with_dpu_telemetry.py (static batching, 200-token
-generations over max_seq 128: the decode ring wraps).
+tests/test_serving_training.py::TestInferenceEngine (instant control and
+the DPU sidecar) and of examples/serve_with_dpu_telemetry.py (static
+batching, 200-token generations over max_seq 128: the decode ring wraps;
+instant control and the sidecar), some of them traced.
 
 Scheduling, event sizes and the clock do not depend on the tokens, so the
-reports (wall-clock timings aside) and every telemetry batch must be equal.
+reports (wall-clock timings aside), every telemetry batch (at the sink the
+engine feeds, and at the plane behind a sidecar's wire and budget), the
+sidecar's report, the tracer's incidents and counters and the flight
+recorder's snapshot must be equal.
 Tokens are compared through the logits: the port is fed the JAX engine's
 inputs at every model call (teacher forcing), because greedy argmax may
 flip on near-ties in a random-init model, and each call's logits must agree
@@ -96,6 +100,12 @@ def _example(vocab):
              200 if i % 4 == 0 else 4) for i in range(16)]
 
 
+def _serving_dpu(vocab):
+    rng = random.Random(2)
+    return [(i, i * 0.004, [rng.randrange(vocab) for _ in range(12)], 6)
+            for i in range(8)]
+
+
 SYSTEM = dict(max_slots=4, max_seq=128, n_pages=128, page_size=16)
 LLAMA_V = JARCHS["llama3.2-3b"].reduced().vocab
 QWEN_V = JARCHS["qwen3-0.6b"].reduced().vocab
@@ -124,21 +134,60 @@ WORKLOADS = {
                           dict(max_slots=4, max_seq=128, n_pages=256,
                                telemetry=True, mitigate=True), True,
                           _example(QWEN_V), 800),
+    "example_dpu": ("qwen3-0.6b",
+                    dict(max_slots=4, max_seq=128, n_pages=256,
+                         telemetry=True, mitigate=True, control="dpu"), True,
+                    _example(QWEN_V), 800),
+    # the closed loop that chip_smoke.py serves at full width on the card
+    "example_dpu_traced": ("qwen3-0.6b",
+                           dict(max_slots=4, max_seq=128, n_pages=256,
+                                telemetry=True, mitigate=True,
+                                control="dpu", trace=True), True,
+                           _example(QWEN_V), 800),
+    "engine_dpu": ("llama3.2-3b",
+                   dict(max_slots=4, max_seq=128, n_pages=64, page_size=16,
+                        control="dpu"), False, _serving_dpu(LLAMA_V), 400),
+    "system_vantages_traced": ("qwen3-0.6b", dict(SYSTEM, trace=True),
+                               False, _system_vantages(), 200),
+    "system_vantages_dpu_traced": ("qwen3-0.6b",
+                                   dict(SYSTEM, control="dpu", trace=True),
+                                   False, _system_vantages(), 200),
 }
 
 
-def _capture_batches(eng) -> list[dict]:
+def _tap(obj) -> list[dict]:
+    """Every batch handed to ``obj.observe_batch``, its columns copied."""
     batches = []
-    if eng.plane is None:
-        return batches
-    observe = eng.plane.observe_batch
+    observe = obj.observe_batch
 
     def tap(batch):
         batches.append({c: np.array(getattr(batch, c))
                         for c in BATCH_COLUMNS})
         return observe(batch)
-    eng.plane.observe_batch = tap
+    obj.observe_batch = tap
     return batches
+
+
+def _capture_batches(eng) -> dict[str, list[dict]]:
+    """The batches the engine hands its sink and, behind a DPU sidecar's
+    wire and budget, those that reach the plane."""
+    if eng.plane is None:
+        return {}
+    out = {"plane": _tap(eng.plane)}
+    if eng.dpu is not None:
+        out["sink"] = _tap(eng.dpu)
+    return out
+
+
+def _loop_state(eng) -> dict:
+    """What the control loop observed, beyond the report."""
+    out = {}
+    if eng.dpu is not None:
+        out["dpu"] = eng.dpu.report()
+    if eng.tracer is not None:
+        out["tracer"] = (eng.tracer.reports(), eng.tracer.counters)
+        out["recorder"] = eng.recorder.snapshot(eng.clock)
+    return out
 
 
 def _run_jax(jm, params, kw, static, specs, steps):
@@ -168,7 +217,7 @@ def _run_jax(jm, params, kw, static, specs, steps):
         return run
     eng._prefill_fn = prefill_tap
     rep = eng.run([JRequest(*s) for s in specs], max_steps=steps)
-    return rep, batches, calls
+    return rep, batches, calls, _loop_state(eng)
 
 
 class ForcedModel:
@@ -211,13 +260,17 @@ def _strip(rep: dict) -> dict:
     return rep
 
 
-@pytest.mark.parametrize("workload", sorted(WORKLOADS))
-def test_engine_matches_jax(models, workload):
-    arch, kw, static, specs, steps = WORKLOADS[workload]
-    jm, params, tm = models[arch]
-    jrep, jbatches, calls = _run_jax(jm, params, kw, static, specs, steps)
+def engine_parity(jm, params, model, workload) -> list[tuple]:
+    """One workload through the JAX engine and through the port's, the port
+    fed the JAX engine's inputs at every model call.  Asserts that the
+    reports, the batches at each tap and the loop's state are equal;
+    returns the (port, JAX) logits of every call, for the caller to hold
+    to its tolerance."""
+    _, kw, static, specs, steps = WORKLOADS[workload]
+    jrep, jbatches, calls, jstate = _run_jax(jm, params, kw, static, specs,
+                                             steps)
 
-    forced = ForcedModel(tm, calls)
+    forced = ForcedModel(model, calls)
     eng = InferenceEngine(forced, EngineConfig(**kw))
     if static:
         eng.sched.set_continuous(False)
@@ -226,33 +279,51 @@ def test_engine_matches_jax(models, workload):
 
     assert _strip(rep) == _strip(jrep)
     assert rep["completed"] == len(specs)
-    assert len(batches) == len(jbatches)
-    for got, want in zip(batches, jbatches):
-        for col in BATCH_COLUMNS:
-            np.testing.assert_array_equal(got[col], want[col], err_msg=col)
+    assert batches.keys() == jbatches.keys()
+    for tap, want_batches in jbatches.items():
+        assert len(batches[tap]) == len(want_batches), tap
+        for got, want in zip(batches[tap], want_batches):
+            for col in BATCH_COLUMNS:
+                np.testing.assert_array_equal(got[col], want[col],
+                                              err_msg=f"{tap}: {col}")
+    state = _loop_state(eng)
+    assert state == jstate
+    assert state.keys() == {
+        *(("dpu",) if kw.get("control") == "dpu" else ()),
+        *(("tracer", "recorder") if kw.get("trace") else ())}
     assert len(forced.pairs) == len(calls)
-    for got, want in forced.pairs:
+    return forced.pairs
+
+
+@pytest.mark.parametrize("workload", sorted(WORKLOADS))
+def test_engine_matches_jax(models, workload):
+    jm, params, tm = models[WORKLOADS[workload][0]]
+    for got, want in engine_parity(jm, params, tm, workload):
         np.testing.assert_allclose(got, want, atol=LOGIT_TOL,
                                    rtol=LOGIT_TOL)
 
 
 def test_mitigated_example_recovers_steps(models):
-    """The example's closed loop, on the port: mitigation flips static
-    batching to continuous and finishes in fewer steps."""
+    """The example's closed loop, on the port: mitigation, in process or
+    through the DPU sidecar's command bus, flips static batching to
+    continuous and finishes in fewer steps."""
     _, _, tm = models["qwen3-0.6b"]
     steps = {}
-    for mitigate in (False, True):
+    for name, kw in (("static", dict(mitigate=False)),
+                     ("instant", dict(mitigate=True)),
+                     ("dpu", dict(mitigate=True, control="dpu"))):
         eng = InferenceEngine(tm, EngineConfig(
-            max_slots=4, max_seq=128, n_pages=256, telemetry=True,
-            mitigate=mitigate))
+            max_slots=4, max_seq=128, n_pages=256, telemetry=True, **kw))
         eng.sched.set_continuous(False)
         rep = eng.run([ServeRequest(*s) for s in _example(QWEN_V)],
                       max_steps=800)
-        steps[mitigate] = rep["steps"]
-        if mitigate:
+        steps[name] = rep["steps"]
+        if name != "static":
             assert "inflight_remap" in [a for _, a, _ in
                                         rep["telemetry"]["actions"]]
-    assert steps[True] < steps[False]
+    assert eng.dpu.report()["commands"]["applied"] >= 1
+    assert steps["instant"] < steps["static"]
+    assert steps["dpu"] < steps["static"]
 
 
 def test_mitigation_surface(models):
@@ -270,11 +341,28 @@ def test_mitigation_surface(models):
     assert eng.tracer is None and eng.recorder is None
 
 
-@pytest.mark.parametrize("kw", [dict(control="dpu"), dict(trace=True)])
-def test_unported_control_paths_raise(models, kw):
+def test_unknown_control_raises(models):
     _, _, tm = models["qwen3-0.6b"]
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(tm, EngineConfig(max_slots=2, max_seq=64, **kw))
     with pytest.raises(ValueError):
         InferenceEngine(tm, EngineConfig(max_slots=2, max_seq=64,
                                          control="bogus"))
+
+
+@pytest.mark.parametrize("control", ["instant", "dpu"])
+def test_loop_wiring(models, control):
+    """Who owns actuation: the plane's controller (instant), or the
+    sidecar's policy engine with the engine behind its command bus (dpu);
+    a tracer hangs on whichever runs the loop."""
+    _, _, tm = models["qwen3-0.6b"]
+    eng = InferenceEngine(tm, EngineConfig(max_slots=2, max_seq=64,
+                                           control=control, trace=True))
+    assert eng.tracer is not None and eng.recorder is not None
+    if control == "dpu":
+        assert eng.plane.controller is None
+        assert eng.dpu.bus.engine is eng
+        assert eng.dpu.policy.tracer is eng.tracer
+    else:
+        assert eng.dpu is None
+        assert eng.plane.controller.engine is eng
+        assert eng.plane.tracer is eng.tracer
+        assert eng.plane.recorder is eng.recorder

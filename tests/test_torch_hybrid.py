@@ -35,7 +35,6 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import ARCHS as JARCHS  # noqa: E402
-from repro.core.events import BATCH_COLUMNS  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
@@ -47,13 +46,7 @@ from repro_torch.models.model import CACHE_BATCH_AXIS  # noqa: E402
 from repro_torch.models.transformer import ring_info  # noqa: E402
 from repro_torch.serving import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.serving import ServeRequest  # noqa: E402
-from test_torch_engine import (  # noqa: E402
-    WORKLOADS,
-    ForcedModel,
-    _capture_batches,
-    _run_jax,
-    _strip,
-)
+from test_torch_engine import WORKLOADS, engine_parity  # noqa: E402
 
 LAYER_TOL = 1e-4
 MODEL_TOL = 1e-3
@@ -352,25 +345,8 @@ def test_every_layer_matches_jax_on_the_same_input(hybrid, case):
 
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
 def test_engine_matches_jax(hybrid, workload):
-    _, kw, static, specs, steps = WORKLOADS[workload]
     _, jm, params, tm = hybrid
-    jrep, jbatches, calls = _run_jax(jm, params, kw, static, specs, steps)
-
-    forced = ForcedModel(tm, calls)
-    eng = InferenceEngine(forced, EngineConfig(**kw))
-    if static:
-        eng.sched.set_continuous(False)
-    batches = _capture_batches(eng)
-    rep = eng.run([ServeRequest(*s) for s in specs], max_steps=steps)
-
-    assert _strip(rep) == _strip(jrep)
-    assert rep["completed"] == len(specs)
-    assert len(batches) == len(jbatches)
-    for got, want in zip(batches, jbatches):
-        for col in BATCH_COLUMNS:
-            np.testing.assert_array_equal(got[col], want[col], err_msg=col)
-    assert len(forced.pairs) == len(calls)
-    for got, want in forced.pairs:
+    for got, want in engine_parity(jm, params, tm, workload):
         _close(got, want, MODEL_TOL)
 
 

@@ -46,7 +46,9 @@ def test_the_port_has_modules_and_the_scan_sees_them():
              if p.is_relative_to(PORT)}
     for want in ("bridge.py", "kernels/ops.py", "kernels/build.py",
                  "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
-                 "serving/engine.py", "core/telemetry.py"):
+                 "serving/engine.py", "core/telemetry.py",
+                 "dpu/sidecar.py", "obs/trace.py", "serving/router.py",
+                 "launch/serve.py"):
         assert want in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
