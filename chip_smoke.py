@@ -30,6 +30,13 @@ Phases, each printing one JSON line:
            dpu and instant control for the loop's host cost
   launch   python -m repro_torch.launch.serve on the card and with
            --device cpu: equal printed lines and reports
+  quickstart  examples/quickstart.py's whole pipeline with the port: full-
+           size llama3.2-3b (bf16, seeded weights) serves its ten requests
+           with telemetry, held to the same run on the CPU; tp_straggler
+           injected in the simulator, detected and attributed as the golden
+           fixture says; hot_replica's loop off and on; the smoke sweep's
+           gate and the golden fixture's smoke scenarios; the port's linter
+           clean (its first line gives numpy's version)
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -428,6 +435,16 @@ def phase_kernels(torch, ops, timer) -> dict:
     check(heads == {1, 2, 4} and splits == {1, 2},
           f"SSD cases cover only heads per CTA {sorted(heads)} and p "
           f"splits {sorted(splits)}")
+    # llama3.2-3b in the quickstart's engine: its prompts' 64-token bucket
+    # (G = 3), and decode over its 4 slots' 128-position ring in pages of 16
+    flash.append(flash_case(torch, ops, timer, gen, b=1, s=64, hq=24, hkv=8,
+                            d=128, window=0, dtype="bfloat16", time_it=True))
+    flash[-1]["model"] = QUICKSTART_ARCH
+    llama_lens = sorted(rng.randrange(9, 43) for _ in range(4))
+    paged.append(paged_case(torch, ops, timer, gen, b=4, page=16, per_seq=8,
+                            hq=24, hkv=8, d=128, lengths=llama_lens,
+                            permute=False, dtype="bfloat16", time_it=True))
+    paged[-1]["model"] = QUICKSTART_ARCH
     return {"flash_attention": flash, "paged_attention": paged,
             "ssd_scan": ssd}
 
@@ -552,6 +569,29 @@ def profile_calls(torch, fn, n: int) -> dict:
                     "kernels": ssd_ms}}
 
 
+def timed(fn, spent: dict, calls: dict, name: str):
+    """``fn``, adding its host time to ``spent[name]`` and one to
+    ``calls[name]`` at each call; an engine step or prefill ends in a
+    device-to-host copy, so the host clock covers its device work."""
+    def inner(*args):
+        s = time.perf_counter()
+        out = fn(*args)
+        spent[name] += time.perf_counter() - s
+        calls[name] += 1
+        return out
+    return inner
+
+
+def checked(torch, fn, finite: list):
+    """``fn``, appending one device flag per call to ``finite``: whether
+    its logits are all finite (read once, at the end of a run)."""
+    def inner(*args):
+        out = fn(*args)
+        finite.append(torch.isfinite(out[0]).all())
+        return out
+    return inner
+
+
 def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
                seed: int = 0) -> dict:
     from repro_torch.configs import ARCHS
@@ -572,30 +612,14 @@ def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
                          max_new_tokens=rng.randrange(*new_tokens))
             for i, n in enumerate(lens)]
 
-    finite = []          # one device flag per model call, read at the end
+    finite = []
     spent = {"prefill": 0.0, "decode": 0.0}
-
-    def checked(fn):
-        def inner(*args):
-            out = fn(*args)
-            finite.append(torch.isfinite(out[0]).all())
-            return out
-        return inner
-
-    def timed(fn, name):
-        # host clock; each engine step ends in a device-to-host copy
-        def inner(*args):
-            s = time.perf_counter()
-            out = fn(*args)
-            spent[name] += time.perf_counter() - s
-            return out
-        return inner
-
+    calls = dict.fromkeys(spent, 0)
     prefill, decode_step = model.prefill, model.decode_step
-    model.prefill = checked(model.prefill)
-    model.decode_step = checked(model.decode_step)
-    eng._prefill = timed(eng._prefill, "prefill")
-    eng._step = timed(eng._step, "decode")
+    model.prefill = checked(torch, model.prefill, finite)
+    model.decode_step = checked(torch, model.decode_step, finite)
+    eng._prefill = timed(eng._prefill, spent, calls, "prefill")
+    eng._step = timed(eng._step, spent, calls, "decode")
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -698,28 +722,13 @@ def loop_run(torch, model, observe: bool = False, **kw) -> dict:
     reqs = example_requests(model.cfg.vocab)
     spent = {"prefill": 0.0, "decode": 0.0, "flush": 0.0}
     calls = dict.fromkeys(spent, 0)
-
-    def timed(fn, name):
-        def inner(*args):
-            s = time.perf_counter()
-            out = fn(*args)
-            spent[name] += time.perf_counter() - s
-            calls[name] += 1
-            return out
-        return inner
-    eng._prefill = timed(eng._prefill, "prefill")
-    eng._step = timed(eng._step, "decode")
-    eng._flush_telemetry = timed(eng._flush_telemetry, "flush")
+    eng._prefill = timed(eng._prefill, spent, calls, "prefill")
+    eng._step = timed(eng._step, spent, calls, "decode")
+    eng._flush_telemetry = timed(eng._flush_telemetry, spent, calls, "flush")
     sink, finite = [], []
     if observe:
-        def checked(fn):
-            def inner(*args):
-                out = fn(*args)
-                finite.append(torch.isfinite(out[0]).all())
-                return out
-            return inner
-        model.prefill = checked(model.prefill)
-        model.decode_step = checked(model.decode_step)
+        model.prefill = checked(torch, model.prefill, finite)
+        model.decode_step = checked(torch, model.decode_step, finite)
         if eng.dpu is not None:
             observe_batch = eng.dpu.observe_batch
 
@@ -878,6 +887,216 @@ def phase_launch() -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 7: the quickstart's whole pipeline
+# ----------------------------------------------------------------------
+
+QUICKSTART_ARCH = "llama3.2-3b"
+# examples/quickstart.py's engine
+QUICKSTART_ENGINE = dict(max_slots=4, max_seq=128, n_pages=128, page_size=16)
+GOLDEN = ROOT / "tests" / "golden" / "scenario_findings.json"
+#: the golden fixture's seven metrics (tests/regen_golden.py)
+GOLDEN_METRICS = {
+    "completed": lambda m: m.completed, "tokens_out": lambda m: m.tokens_out,
+    "first_finding_ts": lambda m: m.first_finding_ts,
+    "p50_latency": lambda m: m.p(0.5), "p99_latency": lambda m: m.p(0.99),
+    "p50_ttft": lambda m: m.p_ttft(0.5), "p99_ttft": lambda m: m.p_ttft(0.99)}
+
+
+def quickstart_requests(vocab: int) -> list:
+    """The quickstart's ten requests: 8-31 prompt tokens drawn from the
+    whole vocabulary, 4-11 new tokens, one every 3 ms."""
+    from repro_torch.serving import ServeRequest
+    rng = random.Random(0)
+    return [ServeRequest(
+        req_id=i, arrival=i * 0.003,
+        prompt=[rng.randrange(vocab) for _ in range(rng.randrange(8, 32))],
+        max_new_tokens=rng.randrange(4, 12)) for i in range(10)]
+
+
+def quickstart_serve(torch, model) -> dict:
+    """Step 2: the ten requests through the quickstart's engine, with
+    telemetry and mitigation; every decode step and prefill timed on the
+    host clock, every model call's logits checked finite."""
+    from repro_torch.serving import EngineConfig, InferenceEngine
+    eng = InferenceEngine(model, EngineConfig(**QUICKSTART_ENGINE))
+    reqs = quickstart_requests(model.cfg.vocab)
+    spent = {"prefill": 0.0, "decode": 0.0}
+    calls = dict.fromkeys(spent, 0)
+    finite = []
+    eng._prefill = timed(eng._prefill, spent, calls, "prefill")
+    eng._step = timed(eng._step, spent, calls, "decode")
+    model.prefill = checked(torch, model.prefill, finite)
+    model.decode_step = checked(torch, model.decode_step, finite)
+    t0 = time.perf_counter()
+    rep = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    del model.prefill, model.decode_step
+    check(bool(torch.stack(finite).all()), f"quickstart on {model.device}: "
+          "logits not finite")
+    tel = rep["telemetry"]
+    check(rep["completed"] == len(reqs), f"quickstart on {model.device}: "
+          f"completed {rep['completed']} of {len(reqs)}")
+    check(tel["findings"] == 0, f"quickstart on {model.device}: healthy "
+          f"serve gave {tel['findings']} findings")
+    prefills, steps = eng.stats["prefills"], rep["steps"]
+    return {"report": without_wall_clock(rep), "prefills": prefills,
+            "steps": steps, "tokens": rep["tokens"],
+            "buckets": sorted({eng.sched.bucket_len(len(r.prompt))
+                               for r in reqs}),
+            "wall_s": wall,
+            "ms_per_decode_step": spent["decode"] / steps * 1e3,
+            "ms_per_prefill": spent["prefill"] / prefills * 1e3,
+            "tokens_per_s_wall": rep["tokens"] / wall}
+
+
+def golden_outcome(m, plane) -> dict:
+    return {"findings": [[f.name, f.node, f.ts, f.severity, f.score]
+                         for f in plane.findings],
+            "metrics": {k: fn(m) for k, fn in GOLDEN_METRICS.items()}}
+
+
+def quickstart_sim(golden: dict) -> dict:
+    """Steps 3 and 4 on the port's simulator: tp_straggler detected and
+    attributed as the golden fixture says, then hot_replica's loop off and
+    on (the mitigated run acts, lowers p99 and completes no fewer)."""
+    from repro_torch.sim import SCENARIOS, run_scenario
+    t0 = time.perf_counter()
+    sc = SCENARIOS["tp_straggler"]
+    m, plane, _ = run_scenario(sc.fault, sc.params, sc.workload)
+    got = golden_outcome(m, plane)
+    check(got == {k: golden["tp_straggler"][k] for k in got}, "tp_straggler: "
+          "findings or metrics differ from the golden fixture")
+    first = next(f for f in got["findings"] if f[0] == "tp_straggler")
+    att = next((a for a in plane.attributions
+                if a.primary.name == "tp_straggler"), None)
+    check(att is not None, "tp_straggler: no attribution names it primary")
+    straggler = {"injected_node": sc.fault.straggler_node,
+                 "finding": first, "locus": att.locus, "node": att.node,
+                 "confidence": att.confidence,
+                 "detect_latency_s": m.first_finding_ts - sc.fault.start,
+                 "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    sc = SCENARIOS["hot_replica"]
+    runs = {}
+    for mitigate in (False, True):
+        m, plane, _ = run_scenario(dataclasses.replace(sc.fault), sc.params,
+                                   sc.workload, mitigate=mitigate)
+        runs[mitigate] = {"actions": [a.action for a in plane.actions],
+                          "p99_latency": m.p(0.99),
+                          "completed": m.completed}
+    off, on = runs[False], runs[True]
+    check(len(on["actions"]) >= 1, "hot_replica: the mitigated run took no "
+          "action")
+    check(on["p99_latency"] < off["p99_latency"], f"hot_replica: p99 "
+          f"{off['p99_latency']} -> {on['p99_latency']} did not fall")
+    check(on["completed"] >= off["completed"], f"hot_replica: completions "
+          f"{off['completed']} -> {on['completed']} fell")
+    return {"tp_straggler": straggler,
+            "hot_replica": {"off": off, "on": on,
+                            "seconds": time.perf_counter() - t0}}
+
+
+def smoke_sweep(golden: dict) -> dict:
+    """Step 5: ``python -m repro_torch.sim.sweep --smoke``'s grid in this
+    process (one worker: a fork would copy the CUDA context) and its gate;
+    then each smoke scenario's findings and metrics against the golden
+    fixture, the cells' counts included."""
+    from repro_torch.sim import SCENARIOS, SweepConfig, run_scenario, run_sweep
+    from repro_torch.sim.sweep import SMOKE_SCENARIOS
+    t0 = time.perf_counter()
+    report = run_sweep(SweepConfig(scenarios=SMOKE_SCENARIOS, seeds=(0,),
+                                   workers=1, trace=True))
+    sweep_s = time.perf_counter() - t0
+    problems = report.incident_problems()
+    check(report.hit_rate() == 1.0, f"smoke sweep: hit rate "
+          f"{report.hit_rate()}")
+    check(report.false_positives() == 0, f"smoke sweep: "
+          f"{report.false_positives()} false positives")
+    check(not problems, f"smoke sweep: incident problems {problems}")
+    t0 = time.perf_counter()
+    for r in report.results:
+        want = golden[r.scenario]
+        counts: dict[str, int] = {}
+        for f in want["findings"]:
+            counts[f[0]] = counts.get(f[0], 0) + 1
+        cell = {"findings": r.findings, "completed": r.completed,
+                "tokens_out": r.tokens_out, "p99_latency": r.p99_latency,
+                "p99_ttft": r.p99_ttft}
+        check(cell == {"findings": counts, **{
+            k: want["metrics"][k] for k in cell if k != "findings"}},
+            f"smoke sweep: cell {r.scenario} differs from the golden fixture")
+        sc = SCENARIOS[r.scenario]
+        m, plane, _ = run_scenario(sc.fault, sc.params, sc.workload)
+        check(golden_outcome(m, plane) == {k: want[k] for k in (
+            "findings", "metrics")}, f"smoke scenario {r.scenario}: findings "
+            "or metrics differ from the golden fixture")
+    return {"scenarios": len(report.results), "hit_rate": report.hit_rate(),
+            "false_positives": report.false_positives(),
+            "incidents": sum(len(r.incidents) for r in report.results),
+            "events": report.events, "sweep_s": sweep_s,
+            "golden_s": time.perf_counter() - t0}
+
+
+def phase_quickstart(torch, ops) -> dict:
+    """examples/quickstart.py's four steps with the port, the model at full
+    size on the card, then the smoke sweep and the port's linter."""
+    import numpy
+    from repro_torch.configs import ARCHS
+    from repro_torch.lint import run_lint
+    from repro_torch.models import build_model
+    emit({"phase": "quickstart", "numpy": numpy.__version__,
+          "started": True})
+    cfg = ARCHS[QUICKSTART_ARCH]
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the CPU's run: the reduced model with the full model's vocabulary, so
+    # the prompts and the D2H events are the card's too
+    small = build_model(dataclasses.replace(cfg.reduced(), vocab=cfg.vocab),
+                        device="cpu", seed=0)
+    ops.reset_launch_counts()
+    card = quickstart_serve(torch, model)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = kernel_launches(cfg, card["prefills"], card["steps"])
+    check(counts == want, f"quickstart: launches {counts}, want {want} for "
+          f"{card['prefills']} prefills and {card['steps']} steps")
+    cpu = quickstart_serve(torch, small)
+    check(card["report"] == cpu["report"], "quickstart: the card's report "
+          "differs from the CPU's")
+    params = sum(p.numel() for p in model.decoder.parameters())
+    del model
+    torch.cuda.empty_cache()
+    golden = json.loads(GOLDEN.read_text())["scenarios"]
+    sim = quickstart_sim(golden)
+    sweep = smoke_sweep(golden)
+    t0 = time.perf_counter()
+    lint = run_lint(ROOT)
+    check(not lint.unsuppressed, "repro_torch.lint: "
+          + "; ".join(f.format() for f in lint.unsuppressed))
+    rep = card["report"]
+    return {"numpy": numpy.__version__, "model": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab, "dtype": cfg.dtype, "params": params,
+            "init_s": init_s, "engine": QUICKSTART_ENGINE,
+            "requests": len(quickstart_requests(cfg.vocab)),
+            "completed": rep["completed"],
+            "tokens_per_step": rep["tokens_per_step"],
+            "events": rep["telemetry"]["events"],
+            "findings": rep["telemetry"]["findings"],
+            "launches": counts,
+            **{k: card[k] for k in ("prefills", "steps", "tokens", "buckets",
+                                    "wall_s", "ms_per_decode_step",
+                                    "ms_per_prefill", "tokens_per_s_wall")},
+            "cpu_wall_s": cpu["wall_s"], **sim, "smoke_sweep": sweep,
+            "lint": {"files": lint.files_scanned, "unsuppressed": 0,
+                     "suppressed": len(lint.suppressed),
+                     "seconds": time.perf_counter() - t0}}
+
+
+# ----------------------------------------------------------------------
 
 def time_ssd_tree(src: Path) -> int:
     """The SSD scan of the package under ``src`` (another tree's src/, such
@@ -909,7 +1128,7 @@ def time_ssd_tree(src: Path) -> int:
     return 0
 
 
-PHASES = ("kernels", "path", "serve", "control", "launch")
+PHASES = ("kernels", "path", "serve", "control", "launch", "quickstart")
 
 
 def main() -> int:
@@ -974,6 +1193,11 @@ def main() -> int:
         launch = phase_launch()
         emit({"phase": "launch", "gpu": smi,
               "seconds": time.perf_counter() - t0, **launch})
+    if "quickstart" in phases:
+        t0 = time.perf_counter()
+        quick = phase_quickstart(torch, ops)
+        emit({"phase": "quickstart", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **quick})
     if tuple(phases) != PHASES:
         # a partial run proves nothing about the port: no "ok" line
         print(smi, flush=True)
@@ -981,10 +1205,10 @@ def main() -> int:
         return 0
 
     # launches on the main paths: each kernel's count summed over the
-    # serve cases and the control loop (each run's counts were set to 0
-    # just before it)
+    # serve cases, the control loop and the quickstart's serve (each run's
+    # counts were set to 0 just before it)
     launches = {name: sum(c["launches"][name]
-                          for c in serve["cases"] + [control])
+                          for c in serve["cases"] + [control, quick])
                 for name in kern}
     summary = []
     for name, rows in kern.items():

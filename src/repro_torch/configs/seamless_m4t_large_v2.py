@@ -1,0 +1,4 @@
+"""--arch config module (exact published spec; see registry.py)."""
+from repro_torch.configs.registry import SEAMLESS as CONFIG
+
+__all__ = ["CONFIG"]

@@ -52,6 +52,7 @@ class EngineConfig:
     node: int = 0
     telemetry: bool = True
     mitigate: bool = True
+    greedy: bool = True
     # "instant" -- in-process MitigationController;
     # "dpu"     -- telemetry crosses a modeled transport into a DPUSidecar
     #              and mitigation commands ride the command bus back

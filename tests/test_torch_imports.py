@@ -48,7 +48,8 @@ def test_the_port_has_modules_and_the_scan_sees_them():
                  "kernels/ssd_scan.py", "models/layers.py", "models/ssm.py",
                  "serving/engine.py", "core/telemetry.py",
                  "dpu/sidecar.py", "obs/trace.py", "serving/router.py",
-                 "launch/serve.py"):
+                 "launch/serve.py", "sim/cluster.py", "lint/wiring.py",
+                 "data/pipeline.py", "configs/llama3_2_3b.py"):
         assert want in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
@@ -65,7 +66,8 @@ def test_kernel_entry_points_catch_nothing(module):
 
 def test_importing_the_port_builds_nothing(tmp_path):
     code = ("import repro_torch.serving, repro_torch.bridge, "
-            "repro_torch.kernels.ops as o, sys; "
+            "repro_torch.kernels.ops as o, repro_torch.sim, "
+            "repro_torch.lint, repro_torch.data, sys; "
             "assert 'jax' not in sys.modules; "
             "assert 'triton' not in sys.modules; "
             "from repro_torch.kernels import build; "
