@@ -11,17 +11,23 @@ the prefill buckets, to compare two commits in one call.)
 Phases, each printing one JSON line:
   build    build the CUDA kernels with nvcc from the checkout's sources
   kernels  each kernel against its plain PyTorch version on the card, at
-           the serving paths' shapes (qwen3-0.6b's and zamba2-7b's) and at
-           edge cases; kernel, plain and library times with CUDA events,
-           each two ways (see Timer)
+           the serving paths' shapes (qwen3-0.6b's, zamba2-7b's, llama3.2-
+           3b's; flash also bidirectional at seamless-m4t-large-v2's encoder
+           and cross-attention shapes) and at edge cases; kernel, plain and
+           library times with CUDA events, each two ways (see Timer)
   path     at full width, f32, the same seeded weights on the CPU (plain
            versions) and on the card (kernels), a 200-token prompt and 8
-           teacher-forced decode steps: qwen3-0.6b with 2 layers, and
+           teacher-forced decode steps: qwen3-0.6b with 2 layers,
            zamba2-7b with 7 (one super-block of 6 Mamba2 layers and the
-           shared attention block, and one tail layer)
+           shared attention block, and one tail layer), qwen2-moe-a2.7b
+           and granite-moe-3b-a800m with 2, xlstm-125m with 2 (one pair),
+           llava-next-mistral-7b with 2 after 576 seeded patch embeddings,
+           and seamless-m4t-large-v2 with 2 + 2 over 200 seeded frames
   serve    behind InferenceEngine with telemetry and mitigation, full width
            and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
            then zamba2-7b serving 8
+  families the same for the MoE and xLSTM families: qwen2-moe-a2.7b
+           (14.3 B parameters) serving 8 requests, xlstm-125m serving 8
   control  the DPU closed loop of examples/serve_with_dpu_telemetry.py at
            full width: qwen3-0.6b (bf16, seeded weights) from static
            batching, telemetry over the modeled wire into the DPU sidecar,
@@ -50,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import random
@@ -198,28 +205,35 @@ def flash_q_rows(torch, b: int, s: int, hq: int) -> int:
 
 
 def flash_case(torch, ops, timer, gen, *, b, s, hq, hkv, d, window,
-               dtype, time_it):
+               dtype, time_it, skv=None, causal=True):
+    """q (b, s, hq, d) against k/v (b, skv, hkv, d), skv = s by default;
+    ``causal=False`` is the encoder's and the cross-attention's mode."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
     import torch.nn.functional as F
     dt = getattr(torch, dtype)
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
-               .to(dt) for h in (hq, hkv, hkv))
-    got = ops.flash_attention(q, k, v, causal=True, window=window)
-    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    skv = s if skv is None else skv
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dt)
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device="cuda")
+            .to(dt) for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     row = {"b": b, "s": s, "hq": hq, "hkv": hkv, "d": d, "window": window,
            "dtype": dtype, "max_abs_err": max_err(torch, got, want, dtype)}
+    if skv != s or not causal:
+        row.update(skv=skv, causal=causal)
     if dtype == "bfloat16":
         row["q_rows"] = flash_q_rows(torch, b, s, hq)
     if time_it:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        timer.into(row, "", lambda: ops.flash_attention(q, k, v, causal=True))
+        timer.into(row, "", lambda: ops.flash_attention(q, k, v,
+                                                        causal=causal))
         row["host_ms"] = timer.last_host_ms
         timer.into(row, "plain_", lambda: flash_attention_plain(
-            q, k, v, causal=True), iters=5)
+            q, k, v, causal=causal), iters=5)
         timer.into(row, "library_", lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-        pairs = s * (s + 1) // 2
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        pairs = s * (s + 1) // 2 if causal else s * skv
         flops = 4.0 * d * hq * b * pairs
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, dtype)
@@ -409,6 +423,31 @@ def phase_kernels(torch, ops, timer) -> dict:
                                 per_seq=4, hq=8, hkv=2, d=64,
                                 lengths=[128, 3, 33], permute=True,
                                 dtype=dtype, time_it=False))
+    # bidirectional (causal=False) at the encoder's and the cross-
+    # attention's shapes: seamless-m4t-large-v2's MHA 16 heads of D = 64
+    # over 200 source frames (encoder Sq = Skv; cross-attention at a 64-
+    # token prefill and at a decode step), and Sq = 333 over Skv = 1000 at
+    # GQA 16/4, D = 128, where both q-block variants run
+    for s, skv in ((200, 200), (64, 200), (1, 200)):
+        for dtype in ("bfloat16", "float32"):
+            flash.append(flash_case(torch, ops, timer, gen, b=1, s=s,
+                                    skv=skv, hq=16, hkv=16, d=64, window=0,
+                                    causal=False, dtype=dtype,
+                                    time_it=False))
+    for b in (1, 4):
+        for dtype in ("bfloat16", "float32"):
+            flash.append(flash_case(torch, ops, timer, gen, b=b, s=333,
+                                    skv=1000, hq=16, hkv=4, d=128, window=0,
+                                    causal=False, dtype=dtype,
+                                    time_it=False))
+    check({r["q_rows"] for r in flash if r.get("causal") is False
+           and "q_rows" in r} == {64, 128},
+          "flash causal=False cases miss a q-block variant")
+    # the seamless decode step's cross-attention, timed against SDPA
+    flash.append(flash_case(torch, ops, timer, gen, b=1, s=1, skv=200,
+                            hq=16, hkv=16, d=64, window=0, causal=False,
+                            dtype="bfloat16", time_it=True))
+    flash[-1]["model"] = "seamless-m4t-large-v2"
     # every variant of the bf16 kernel ran: one or two 64-column boxes of
     # D, 64- or 128-row CTAs, each picked by the shape rule
     variants = {(r["d"] > 64, r["q_rows"]) for r in flash if "q_rows" in r}
@@ -456,24 +495,39 @@ def phase_kernels(torch, ops, timer) -> dict:
 def kernel_launches(cfg, prefills: int, steps: int) -> dict[str, int]:
     """Launches one model's serving path must make: flash per attention
     layer (or shared-block application) and prefill, paged per attention
-    layer and decode step, the SSD scan per Mamba2 layer and prefill."""
+    layer and decode step, the SSD scan per Mamba2 layer and prefill.  An
+    encoder-decoder's prefill also runs flash in every encoder layer and in
+    every decoder layer's cross-attention, which runs it at every decode
+    step too; xLSTM runs no kernel."""
+    if cfg.family == "ssm":
+        return dict.fromkeys(REPLACES, 0)
     if cfg.family == "hybrid":
         attn, mamba = cfg.n_layers // cfg.attn_every, cfg.n_layers
     else:
         attn, mamba = cfg.n_layers, 0
-    return {"flash_attention": attn * prefills,
-            "paged_attention": attn * steps, "ssd_scan": mamba * prefills}
+    flash = attn * prefills
+    if cfg.family == "encdec":
+        flash += (cfg.enc_layers + cfg.n_layers) * prefills \
+            + cfg.n_layers * steps
+    return {"flash_attention": flash, "paged_attention": attn * steps,
+            "ssd_scan": mamba * prefills}
 
 
-def path_case(torch, ops, arch: str, n_layers: int) -> dict:
+def path_case(torch, ops, arch: str, n_layers: int, enc_layers: int = 0,
+              frontend: int = 0) -> dict:
     """The same seeded f32 weights on the CPU (plain versions) and on the
-    card (kernels): a 200-token prompt in the 256 bucket, then 8
-    teacher-forced decode steps; logits must agree to 1e-3."""
+    card (kernels): a 200-token prompt in the 256 bucket (after ``frontend``
+    seeded N(0, 1) patch embeddings for a VLM, or over that many seeded
+    frames for an encoder-decoder), then 8 teacher-forced decode steps;
+    logits must agree to 1e-3.  ``n_layers`` (and ``enc_layers``) cut the
+    depth; the width is the registry's."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers,
-                              dtype="float32",
+    cut = {"n_layers": n_layers}
+    if enc_layers:
+        cut["enc_layers"] = enc_layers
+    cfg = dataclasses.replace(ARCHS[arch], **cut, dtype="float32",
                               name=f"{arch}-{n_layers}l-f32")
     cpu = build_model(cfg, device="cpu", seed=1)
     # the card's copy of the CPU weights (drawn once)
@@ -485,17 +539,21 @@ def path_case(torch, ops, arch: str, n_layers: int) -> dict:
     toks = torch.zeros((1, 256), dtype=torch.int32)
     toks[0, -200:] = torch.tensor(prompt, dtype=torch.int32)
     forced = [[rng.randrange(cfg.vocab)] for _ in range(8)]
+    front = (torch.randn((1, frontend, cfg.d_model),
+                         generator=torch.Generator().manual_seed(2))
+             if frontend else None)
     ops.reset_launch_counts()
     logits = {}
-    for dev, m in models.items():
-        cache = m.init_cache(1, 2048)
-        out, cache = m.prefill(toks.to(dev), cache)
+    for name, m in models.items():
+        cache = m.init_cache(1, 2048, src_len=frontend)
+        out, cache = m.prefill(toks.to(m.device), cache, frontend=None
+                               if front is None else front.to(m.device))
         steps = [out.float().cpu()]
         for t in forced:
             out, cache = m.decode_step(
-                torch.tensor([t], dtype=torch.int32, device=dev), cache)
+                torch.tensor([t], dtype=torch.int32, device=m.device), cache)
             steps.append(out.float().cpu())
-        logits[dev] = torch.stack(steps)
+        logits[name] = torch.stack(steps)
     counts = ops.launch_counts()
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
     check(bool(torch.isfinite(logits["cuda"]).all()), f"{arch} path "
@@ -504,18 +562,36 @@ def path_case(torch, ops, arch: str, n_layers: int) -> dict:
           "> 1e-3")
     want = kernel_launches(cfg, prefills=1, steps=len(forced))
     check(counts == want, f"{arch} path launches {counts}, want {want}")
-    return {"model": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "dtype": cfg.dtype, "prompt": 200, "bucket": 256,
-            "decode_steps": len(forced), "max_abs_logit_err": err,
-            "launches": counts}
+    row = {"model": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "prompt": 200,
+           "bucket": 256, "decode_steps": len(forced),
+           "max_abs_logit_err": err, "launches": counts}
+    if enc_layers:
+        row["enc_layers"] = enc_layers
+    if frontend:
+        row["frontend"] = frontend
+    if cfg.is_moe:
+        row["capacity_factor"] = cfg.capacity_factor
+    del cpu, net, models
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_path(torch, ops) -> dict:
     cases = [path_case(torch, ops, "qwen3-0.6b", 2),
              # one super-block (6 Mamba2 layers + the shared block) and a
              # one-layer tail
-             path_case(torch, ops, "zamba2-7b", 7)]
-    torch.cuda.empty_cache()
+             path_case(torch, ops, "zamba2-7b", 7),
+             # the registry's capacity factor 1.25: at the 256 bucket an
+             # expert takes 21 pairs (qwen2) and the 56 left-pad tokens
+             # overflow theirs, so drops bind
+             path_case(torch, ops, "qwen2-moe-a2.7b", 2),
+             path_case(torch, ops, "granite-moe-3b-a800m", 2),
+             path_case(torch, ops, "xlstm-125m", 2),           # one pair
+             path_case(torch, ops, "llava-next-mistral-7b", 2,
+                       frontend=576),
+             path_case(torch, ops, "seamless-m4t-large-v2", 2,
+                       enc_layers=2, frontend=200)]
     return {"cases": cases}
 
 
@@ -592,8 +668,42 @@ def checked(torch, fn, finite: list):
     return inner
 
 
+def moe_step_weights(torch, cfg, step, tokens: list[int]) -> dict:
+    """The expert weights one decode step reads: the step run once on
+    ``tokens`` (one per slot) with each MoE layer's routing read back (top-
+    k of the router's softmax over the layer's input; a decode step drops
+    nothing, so every chosen expert runs), against what a dispatch over
+    every expert would read."""
+    from repro_torch.models import moe
+    chosen = []
+    inner = moe.moe_fwd
+
+    def counting(p, cfg_, x, group_size=moe.MOE_GROUP):
+        probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p.router,
+                              dim=-1)
+        chosen.append(torch.topk(probs, cfg_.top_k, dim=-1).indices
+                      .unique().numel())
+        return inner(p, cfg_, x, group_size)
+
+    moe.moe_fwd = counting
+    try:
+        step(torch.tensor(tokens, dtype=torch.int32, device="cuda")[:, None])
+    finally:
+        moe.moe_fwd = inner
+    expert = 3 * cfg.d_model * cfg.expert_d_ff * 2        # bf16 bytes
+    return {"distinct_experts_per_layer": chosen,
+            "expert_weight_gb": sum(chosen) * expert / 1e9,
+            "all_experts_weight_gb": len(chosen) * cfg.n_experts * expert
+            / 1e9}
+
+
 def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
-               seed: int = 0) -> dict:
+               seed: int = 0, profile_prefill: int = 1024) -> dict:
+    """Full-size ``arch``, bf16, seeded weights, behind the engine with
+    telemetry and mitigation: one request per prompt length in ``lens``
+    with ``new_tokens`` (a range) new tokens each; then the profile of a
+    decode step of all 8 slots and of a ``profile_prefill``-token
+    prefill."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.serving import (EngineConfig, InferenceEngine,
@@ -637,15 +747,20 @@ def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
           f"{prefills} prefills and {steps} steps")
     check(bool(torch.stack(finite).all()), f"{arch}: serve logits not "
           "finite")
-    # where a decode step of all 8 slots and a 1024-token prefill spend
-    # their time (after the run; these launches are not counted above)
+    # where a decode step of all 8 slots and a prefill spend their time
+    # (after the run; these launches are not counted above)
     toks = torch.zeros((8, 1), dtype=torch.int32, device=model.device)
-    prompt = torch.zeros((1, 1024), dtype=torch.int32, device=model.device)
+    prompt = torch.zeros((1, profile_prefill), dtype=torch.int32,
+                         device=model.device)
     profiled = {
         "decode_step": profile_calls(
             torch, lambda: decode_step(toks, eng.slot_cache), 5),
-        "prefill_1024": profile_calls(
+        f"prefill_{profile_prefill}": profile_calls(
             torch, lambda: prefill(prompt, model.init_cache(1, 2048)), 2)}
+    if cfg.is_moe:
+        profiled["moe_decode_weights"] = moe_step_weights(
+            torch, cfg, lambda t: decode_step(t, eng.slot_cache),
+            [eng._slot_next_token.get(s, 0) for s in range(8)])
     tel = rep["telemetry"]
     out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
            "params": sum(p.numel() for p in model.decoder.parameters()),
@@ -662,7 +777,11 @@ def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
            "findings_by_row": tel["findings_by_row"],
            "actions": [a for _, a, _ in tel["actions"]],
            "profile": profiled}
+    # the model sits in reference cycles (the engine and its plane's
+    # controller, the checked wrappers): collect them now, so the next
+    # case's peak memory is its own
     del eng, model, prefill, decode_step
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
@@ -678,6 +797,20 @@ def phase_serve(torch, ops) -> dict:
     zamba = serve_case(torch, ops, "zamba2-7b",
                        [50, 64, 120, 200, 256, 333, 512, 1000], (16, 65))
     return {"cases": [qwen, zamba]}
+
+
+def phase_families(torch, ops) -> dict:
+    """The families beyond dense and hybrid at full size behind the engine:
+    qwen2-moe-a2.7b (14.3 B parameters, MoE) serving 8 requests over every
+    prefill bucket, and xlstm-125m serving 8 in the 64-256 buckets (its
+    recurrences run a Python step per token and cell, so a long prefill is
+    host-bound; its prefill is profiled at 256 tokens)."""
+    moe = serve_case(torch, ops, "qwen2-moe-a2.7b",
+                     [50, 64, 120, 200, 256, 333, 512, 1000], (16, 65))
+    xlstm = serve_case(torch, ops, "xlstm-125m",
+                       [40, 64, 90, 128, 150, 200, 230, 256], (16, 65),
+                       profile_prefill=256)
+    return {"cases": [moe, xlstm]}
 
 
 # ----------------------------------------------------------------------
@@ -1128,7 +1261,8 @@ def time_ssd_tree(src: Path) -> int:
     return 0
 
 
-PHASES = ("kernels", "path", "serve", "control", "launch", "quickstart")
+PHASES = ("kernels", "path", "serve", "families", "control", "launch",
+          "quickstart")
 
 
 def main() -> int:
@@ -1183,6 +1317,11 @@ def main() -> int:
         serve = phase_serve(torch, ops)
         emit({"phase": "serve", "gpu": smi,
               "seconds": time.perf_counter() - t0, **serve})
+    if "families" in phases:
+        t0 = time.perf_counter()
+        families = phase_families(torch, ops)
+        emit({"phase": "families", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **families})
     if "control" in phases:
         t0 = time.perf_counter()
         control = phase_control(torch, ops)
@@ -1205,10 +1344,10 @@ def main() -> int:
         return 0
 
     # launches on the main paths: each kernel's count summed over the
-    # serve cases, the control loop and the quickstart's serve (each run's
-    # counts were set to 0 just before it)
-    launches = {name: sum(c["launches"][name]
-                          for c in serve["cases"] + [control, quick])
+    # serve and families cases, the control loop and the quickstart's
+    # serve (each run's counts were set to 0 just before it)
+    runs = serve["cases"] + families["cases"] + [control, quick]
+    launches = {name: sum(c["launches"][name] for c in runs)
                 for name in kern}
     summary = []
     for name, rows in kern.items():

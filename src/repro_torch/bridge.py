@@ -1,12 +1,14 @@
 """Parameters from the JAX package into the port.
 
 ``params_from_jax(cfg, tree)`` takes the JAX model's parameter pytree with
-its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``).  Dense:
-``embed``, ``ln_f``, optionally ``lm_head``, and ``layers`` whose leaves
-carry a leading layer axis.  Hybrid: ``embed``, ``shared``, ``ln_f``,
-``lm_head``, ``blocks`` whose leaves carry two leading axes (super-block,
-layer in it) and optionally ``tail`` with one.  One slice of a stacked leaf
-maps to one tensor: ``layers/attn/wq[l]`` -> ``layers[l].attn.wq``,
+its leaves as numpy arrays (``jax.tree.map(np.asarray, params)``).  Every
+family's tree has ``embed``, ``ln_f`` and (untied) ``lm_head`` beside its
+stacks, whose leaves carry leading stack axes: ``layers`` (dense, MoE,
+VLM; an expert leaf is ``(L, E, ...)``), ``blocks`` (hybrid super-block,
+layer in it) and ``tail``, ``encoder`` and ``decoder`` (encoder-decoder,
+with ``ln_enc``), ``pairs`` (xLSTM).  One slice of a stacked leaf maps to
+one tensor: ``layers/attn/wq[l]`` -> ``layers[l].attn.wq``,
+``layers/moe/w_gate[l]`` -> ``layers[l].moe.w_gate`` (E, d, f),
 ``blocks/mamba/in_proj[i, j]`` -> ``blocks[i][j].mamba.in_proj``.  Dense
 weights keep the JAX layout ``(in, out)``: the port computes ``x @ w`` as
 the JAX package does, with no transpose.
@@ -20,8 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import Model, resolve_device
-from repro_torch.models.transformer import Decoder, Hybrid
+from repro_torch.models.model import Model, is_xlstm, net_type, resolve_device
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
@@ -35,17 +36,24 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def _stacks(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+    """The leading (stacked) axes of each top-level entry of the tree."""
+    if cfg.family == "hybrid":
+        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
+        return {"blocks": (n_super, cfg.attn_every), "tail": (n_tail,)}
+    if cfg.family == "encdec":
+        return {"encoder": (cfg.enc_layers,), "decoder": (cfg.n_layers,)}
+    if is_xlstm(cfg):
+        return {"pairs": (cfg.n_layers // 2,)}
+    return {"layers": (cfg.n_layers,)}
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict,
                     device: str | torch.device = "cuda") -> Model:
     """Build the port's model with the JAX package's weights."""
     dev = resolve_device(device)
-    if cfg.family == "hybrid":
-        net = Hybrid(cfg, dev)
-        n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
-        stacks = {"blocks": (n_super, cfg.attn_every), "tail": (n_tail,)}
-    else:
-        net = Decoder(cfg, dev)
-        stacks = {"layers": (cfg.n_layers,)}
+    net = net_type(cfg)(cfg, dev)
+    stacks = _stacks(cfg)
     params = dict(net.named_parameters())
     filled = set()
 

@@ -1,5 +1,5 @@
-"""Core transformer layers: RMSNorm, RoPE, GQA attention (SWA / qk-norm),
-SwiGLU MLP.
+"""Core transformer layers: RMSNorm, RoPE, GQA attention (SWA / qk-norm;
+self-, bidirectional or cross-attention), SwiGLU MLP.
 
 Plain functions on tensors where the JAX package has plain functions
 (``rmsnorm``, ``apply_rope``, ``sdpa``, ``attention_fwd``, ``mlp_fwd``), and
@@ -32,7 +32,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def weight(shape: tuple[int, ...], dtype: torch.dtype,
            device: torch.device) -> nn.Parameter:
-    """An uninitialised inference weight; ``transformer.decoder_init`` or
+    """An uninitialised inference weight; ``transformer.seeded_init`` or
     ``bridge.params_from_jax`` fills it."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -142,16 +142,23 @@ class Attention(nn.Module):
             self.k_norm = RMSNorm(hd, cfg.norm_eps, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv_cache: dict | None = None,
-                use_kernel: bool = False) -> torch.Tensor:
+                kv_cache: dict | None = None, use_kernel: bool = False,
+                kv_source: torch.Tensor | None = None) -> torch.Tensor:
         return attention_fwd(self, self.cfg, x, positions, kv_cache,
-                             use_kernel)
+                             use_kernel, kv_source)
 
 
 def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv_cache: dict | None = None,
-                  use_kernel: bool = False) -> torch.Tensor:
-    """Self-attention with an optional ring-buffer KV cache.
+                  use_kernel: bool = False,
+                  kv_source: torch.Tensor | None = None) -> torch.Tensor:
+    """Self-attention with an optional ring-buffer KV cache, or, with
+    ``kv_source`` (B, Skv, d), attention of x's queries over keys and values
+    projected from it: bidirectional (no mask), no RoPE, no cache, through
+    the flash kernel with ``causal=False``.  That is the encoder's self-
+    attention (``kv_source`` = x) and the decoder's cross-attention over the
+    encoder output; with no source frames it is zeros, as a softmax over an
+    empty axis is in the JAX package.
 
     kv_cache (built by ``transformer.ring_info`` for the whole step):
         {"k"/"v": (B, kv_len, Hkv, D) this layer's cache, written in place,
@@ -175,16 +182,21 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """
     b, s, _ = x.shape
     hd = cfg.hd
+    src = x if kv_source is None else kv_source
     q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(b, s, cfg.n_kv_heads, hd)
+    k = (src @ p.wk).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    v = (src @ p.wv).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv_source is None:      # RoPE only for self-attention
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
-    if kv_cache is not None:
+    if kv_source is not None:
+        out = (ops.flash_attention(q, k, v, causal=False) if k.shape[1]
+               else q.new_zeros(q.shape))
+    elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         kv_len = ck.shape[1]
         if s >= kv_len:

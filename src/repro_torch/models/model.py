@@ -1,13 +1,15 @@
 """Model facade for serving: build_model(cfg, device, seed) -> Model with
-init_cache / prefill / decode_step, for the dense and hybrid families.
+init_cache / prefill / decode_step, for every family of the registry:
+dense, MoE and VLM (``Decoder``), the zamba2 hybrid (``Hybrid``), the
+seamless encoder-decoder (``EncDec``) and xLSTM (``XLSTM``).
 
 The JAX package's ``Model`` serves one sequence per call and the engine
 vmaps it over slots.  Here the batch dimension is written out: the cache
 keeps a position per row, ``pos (B,)``, and an absolute position per slot
 and row, ``kpos (B, kv_len)``, so every row of one call carries its own ring
-state; ``CACHE_BATCH_AXIS`` names the batch axis of every cache entry.  The
-model holds its weights (``decoder``: a ``Decoder`` or a ``Hybrid``), and
-every entry point runs on ``device``.
+state (and, for MoE, its own expert groups); ``CACHE_BATCH_AXIS`` names the
+batch axis of every cache entry.  The model holds its weights (``decoder``,
+one of the stacks), and every entry point runs on ``device``.
 """
 
 from __future__ import annotations
@@ -15,19 +17,38 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.ssm import MLSTM_STATE, SLSTM_STATE
 from repro_torch.models.transformer import (
+    XLSTM,
     Decoder,
+    EncDec,
     Hybrid,
-    decoder_init,
-    hybrid_init,
+    seeded_init,
 )
 
 # the batch (slot) axis of each tensor of a cache
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kpos": 0, "pos": 0, "ssm": 2,
-                    "ssm_tail": 1}
+                    "ssm_tail": 1, "enc_out": 0,
+                    **dict.fromkeys(MLSTM_STATE + SLSTM_STATE, 1)}
+
+
+def is_xlstm(cfg: ModelConfig) -> bool:
+    return cfg.family == "ssm" and cfg.xlstm
+
+
+def net_type(cfg: ModelConfig) -> type[nn.Module]:
+    """The stack that serves ``cfg``'s family."""
+    if cfg.family == "hybrid":
+        return Hybrid
+    if cfg.family == "encdec":
+        return EncDec
+    if is_xlstm(cfg):
+        return XLSTM
+    return Decoder
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -42,17 +63,35 @@ def resolve_device(device: str | torch.device) -> torch.device:
 @dataclass
 class Model:
     cfg: ModelConfig
-    decoder: Decoder | Hybrid
+    decoder: Decoder | Hybrid | EncDec | XLSTM
     device: torch.device
 
-    def init_cache(self, batch: int, max_seq: int,
-                   page_size: int = 16) -> dict:
+    def init_cache(self, batch: int, max_seq: int, page_size: int = 16,
+                   src_len: int = 0) -> dict:
         """A fresh cache.  ``page_size`` is the page size the decode
         kernel views the KV cache in (full attention only).  A hybrid
         keeps the shared block's KV per application, sized by ``max_seq``
-        as the reference sizes it, and every Mamba2 layer's state in f32."""
+        as the reference sizes it, and every Mamba2 layer's state in f32.
+        An encoder-decoder adds ``enc_out`` (batch, src_len, d), which
+        ``prefill`` replaces with the encoder's output.  xLSTM keeps each
+        pair's recurrent states in f32 (``MLSTM_STATE``, ``SLSTM_STATE``:
+        pair axis first, batch second; the stabilisers at -1e30) and a
+        position per row."""
         cfg = self.cfg
         dev = self.device
+        pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        if is_xlstm(cfg):
+            f32 = dict(dtype=torch.float32, device=dev)
+            lead = (cfg.n_layers // 2, batch)
+            h, d = cfg.n_heads, cfg.d_model
+            dh = d // h
+            shapes = dict(zip(MLSTM_STATE + SLSTM_STATE,
+                              [(h, dh, dh), (h, dh), (h,)] + [(d,)] * 4))
+            cache = {name: torch.zeros(lead + shape, **f32)
+                     for name, shape in shapes.items()}
+            cache["mlstm_m"].fill_(-1e30)
+            cache["slstm_m"].fill_(-1e30)
+            return {**cache, "pos": pos}
         if cfg.family == "hybrid":
             n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
             n_kv, kv_len = n_super, max_seq
@@ -66,7 +105,7 @@ class Model:
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
             "kpos": torch.full((batch, kv_len), -1, dtype=torch.int32,
                                device=dev),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "pos": pos,
             "page_size": page_size,
         }
         if cfg.family == "hybrid":
@@ -77,23 +116,53 @@ class Model:
                 cache["ssm_tail"] = torch.zeros((n_tail,) + state,
                                                 dtype=torch.float32,
                                                 device=dev)
+        if cfg.family == "encdec":
+            cache["enc_out"] = torch.zeros((batch, src_len, cfg.d_model),
+                                           dtype=dtype_of(cfg), device=dev)
         return cache
 
-    def prefill(self, tokens: torch.Tensor, cache: dict
+    def prefill(self, tokens: torch.Tensor, cache: dict,
+                frontend: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
         """Process the prompt, fill the cache, return last-position logits
         (B, 1, V).  Reads back whether every row is at position 0 (one small
         device-to-host copy): a fresh cache takes the flash kernel.  A
-        hybrid's Mamba2 layers scan the prompt through the SSD kernel."""
+        hybrid's Mamba2 layers scan the prompt through the SSD kernel.
+        ``frontend`` (B, F, d): an encoder-decoder's frame embeddings, which
+        the encoder reads and whose output the cache keeps as ``enc_out``;
+        a VLM's patch embeddings, put in front of the tokens."""
+        cfg = self.cfg
         fresh = not bool(cache["pos"].any())
-        logits, new_cache = self.decoder(tokens, cache=cache,
-                                         last_only=True, fresh=fresh)
+        if cfg.family == "encdec":
+            if frontend is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
+                                 "needs the frontend's frame embeddings")
+            enc_out = self.decoder.encode(frontend)
+            logits, new_cache = self.decoder(tokens, enc_out, cache=cache,
+                                             last_only=True, fresh=fresh)
+            new_cache["enc_out"] = enc_out
+        elif cfg.family == "vlm":
+            logits, new_cache = self.decoder(tokens, cache=cache,
+                                             last_only=True, fresh=fresh,
+                                             prefix_embeds=frontend)
+        else:
+            logits, new_cache = self.decoder(tokens, cache=cache,
+                                             last_only=True, fresh=fresh)
         return logits[:, -1:], new_cache
 
     def decode_step(self, tokens: torch.Tensor, cache: dict
                     ) -> tuple[torch.Tensor, dict]:
-        """One decode step: tokens (B, 1) -> logits (B, 1, V), new cache."""
-        return self.decoder(tokens, cache=cache)
+        """One decode step: tokens (B, 1) -> logits (B, 1, V), new cache.
+        An encoder-decoder cache without ``enc_out`` is prefilled, as the
+        JAX package's ``Model.decode_step`` does."""
+        if self.cfg.family != "encdec":
+            return self.decoder(tokens, cache=cache)
+        if "enc_out" not in cache:
+            return self.prefill(tokens, cache)
+        logits, new_cache = self.decoder(tokens, cache["enc_out"],
+                                         cache=cache)
+        new_cache["enc_out"] = cache["enc_out"]
+        return logits, new_cache
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",
@@ -101,8 +170,7 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda",
     """A model with seeded random weights on ``device``."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    init = hybrid_init if cfg.family == "hybrid" else decoder_init
-    return Model(cfg, init(cfg, dev, gen), dev)
+    return Model(cfg, seeded_init(net_type(cfg)(cfg, dev), gen), dev)
 
 
 @dataclass(frozen=True)

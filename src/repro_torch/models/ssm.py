@@ -1,16 +1,25 @@
-"""Mamba2 (SSD): the state-space half of the JAX package's ``ssm.py``.
+"""State-space and recurrent blocks: Mamba2 (SSD) and xLSTM (mLSTM +
+sLSTM), the JAX package's ``ssm.py``.
 
-Counterparts of ``mamba2_init`` (the ``Mamba2`` module and its 1-D
+Mamba2: counterparts of ``mamba2_init`` (the ``Mamba2`` module and its 1-D
 parameters), ``_split_mamba_proj``, ``mamba2_fwd`` (full sequence, with an
 optional initial state, the scan through ``ops.ssd_scan``: the CUDA kernel on
 the card, the chunked plain version on the CPU) and ``mamba2_step`` (the
 O(1) decode update, plain PyTorch ops, as the JAX package has no kernel
 there).  As in the reference: no short conv1d in front of x/B/C, one B/C
-group shared by all heads, the state (b, h, p, n) in f32.  xLSTM is not
-ported yet.
+group shared by all heads, the state (b, h, p, n) in f32.
+
+xLSTM: ``MLSTM`` / ``mlstm_fwd`` (matrix memory, exponential gating) and
+``SLSTM`` / ``slstm_fwd`` (scalar memory with a per-head dense hidden-state
+recurrence), each a Python loop over time with the step of the reference's
+``lax.scan``, the states in f32 and the stabiliser ``m`` starting at -1e30;
+``XLSTMPair`` is one (mLSTM, sLSTM) pair of the stack.  The mLSTM's head
+dimension is ``d_model // n_heads``, as in the reference.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -127,3 +136,152 @@ class MambaLayer(nn.Module):
         state.copy_(new)
         return x + y
 
+
+
+# ======================================================================
+# xLSTM: mLSTM + sLSTM
+# ======================================================================
+
+class MLSTM(nn.Module):
+    """q/k/v, output and output-gate projections (d, d) in the model dtype;
+    input and forget gate weights ``w_i``/``w_f`` (d, h) and ``f_bias``
+    (h,) = 3.0 (forget by default) in f32."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = dtype_of(cfg)
+        d, h = cfg.d_model, cfg.n_heads
+        self.wq = weight((d, d), dt, device)
+        self.wk = weight((d, d), dt, device)
+        self.wv = weight((d, d), dt, device)
+        self.w_i = weight((d, h), torch.float32, device)
+        self.w_f = weight((d, h), torch.float32, device)
+        self.w_o = weight((d, d), dt, device)
+        self.w_up = weight((d, d), dt, device)
+        self.f_bias = nn.Parameter(torch.full((h,), 3.0, device=device),
+                                   requires_grad=False)
+
+
+def mlstm_fwd(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
+              state: tuple | None = None) -> tuple[torch.Tensor, tuple]:
+    """x: (b, l, d) -> (out (b, l, d), (C (b,h,dh,dh), n (b,h,dh), m
+    (b,h))), the stabilised recurrence one step per token."""
+    b, l, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    q = (x @ p.wq).reshape(b, l, h, dh).float() / math.sqrt(dh)
+    k = (x @ p.wk).reshape(b, l, h, dh).float() / math.sqrt(dh)
+    v = (x @ p.wv).reshape(b, l, h, dh).float()
+    i_pre = x.float() @ p.w_i
+    f_pre = x.float() @ p.w_f + p.f_bias
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((b, h, dh, dh), **f32),
+                 torch.zeros((b, h, dh), **f32),
+                 torch.full((b, h), -1e30, **f32))
+    C, n, m = state
+    hs = []
+    for t in range(l):
+        qt, kt, vt = q[:, t], k[:, t], v[:, t]                # (b,h,dh)
+        it, ft = i_pre[:, t], f_pre[:, t]                     # (b,h)
+        log_f = -F.softplus(-ft)                              # log sigmoid
+        m_new = torch.maximum(log_f + m, it)
+        i_s = torch.exp(it - m_new)
+        f_s = torch.exp(log_f + m - m_new)
+        C = f_s[..., None, None] * C + i_s[..., None, None] * (
+            vt[..., :, None] * kt[..., None, :])              # (b,h,dv,dk)
+        n = f_s[..., None] * n + i_s[..., None] * kt
+        num = torch.einsum("bhvk,bhk->bhv", C, qt)
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qt).abs(),
+                            torch.exp(-m_new))[..., None]
+        hs.append(num / den)
+        m = m_new
+    gate = F.silu((x @ p.w_up).float())
+    out = (torch.stack(hs, dim=1).reshape(b, l, d) * gate).to(x.dtype)
+    return out @ p.w_o, (C, n, m)
+
+
+class SLSTM(nn.Module):
+    """Input weights of the z, i, f, o gates stacked ``w_x`` (d, 4d), per-
+    head recurrent weights ``r_h`` (h, dh, 4dh) and ``bias`` (4d,) with its
+    forget quarter 3.0, all f32; ``w_o`` (d, d) in the model dtype."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        dh = d // h
+        self.w_x = weight((d, 4 * d), torch.float32, device)
+        self.r_h = weight((h, dh, 4 * dh), torch.float32, device)
+        bias = torch.zeros(4 * d, device=device)
+        bias[2 * d:3 * d] = 3.0
+        self.bias = nn.Parameter(bias, requires_grad=False)
+        self.w_o = weight((d, d), dtype_of(cfg), device)
+
+
+def slstm_fwd(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,
+              state: tuple | None = None) -> tuple[torch.Tensor, tuple]:
+    """x: (b, l, d) -> (out (b, l, d), (c, n, h, m) each (b, d)), the
+    scalar-memory recurrence one step per token."""
+    b, l, d = x.shape
+    h = cfg.n_heads
+    dh = d // h
+    pre_x = x.float() @ p.w_x + p.bias                        # (b,l,4d)
+    if state is None:
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = (torch.zeros((b, d), **f32), torch.zeros((b, d), **f32),
+                 torch.zeros((b, d), **f32),
+                 torch.full((b, d), -1e30, **f32))
+    c, n, hprev, m = state
+    hs = []
+    for t in range(l):
+        rec = torch.einsum("bhd,hde->bhe", hprev.reshape(b, h, dh),
+                           p.r_h).reshape(b, 4 * d)
+        zt, it, ft, ot = (pre_x[:, t] + rec).chunk(4, dim=-1)
+        zt = torch.tanh(zt)
+        log_f = -F.softplus(-ft)
+        m_new = torch.maximum(log_f + m, it)
+        i_s = torch.exp(it - m_new)
+        f_s = torch.exp(log_f + m - m_new)
+        c = f_s * c + i_s * zt
+        n = f_s * n + i_s
+        hprev = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(hprev)
+    out = torch.stack(hs, dim=1).to(x.dtype) @ p.w_o
+    return out, (c, n, hprev, m)
+
+
+MLSTM_STATE = ("mlstm_C", "mlstm_n", "mlstm_m")
+SLSTM_STATE = ("slstm_c", "slstm_n", "slstm_h", "slstm_m")
+
+
+class XLSTMPair(nn.Module):
+    """One pair of the xLSTM stack: pre-norm mLSTM and pre-norm sLSTM,
+    each with a residual."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.ln_m = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.mlstm = MLSTM(cfg, device)
+        self.ln_s = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.slstm = SLSTM(cfg, device)
+
+    def forward(self, x: torch.Tensor,
+                states: dict | None = None) -> torch.Tensor:
+        """Without ``states``: from zero states.  With them (this pair's
+        ``MLSTM_STATE`` and ``SLSTM_STATE`` tensors, batch first): from
+        them, and the new states are written into them in place (the JAX
+        package returns new arrays)."""
+        m_state = s_state = None
+        if states is not None:
+            m_state = tuple(states[k] for k in MLSTM_STATE)
+            s_state = tuple(states[k] for k in SLSTM_STATE)
+        y, new_m = mlstm_fwd(self.mlstm, self.cfg, self.ln_m(x), m_state)
+        x = x + y
+        y, new_s = slstm_fwd(self.slstm, self.cfg, self.ln_s(x), s_state)
+        if states is not None:
+            for name, new in zip(MLSTM_STATE + SLSTM_STATE, new_m + new_s):
+                states[name].copy_(new)
+        return x + y

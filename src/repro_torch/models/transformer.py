@@ -1,15 +1,19 @@
-"""Model stacks: the dense decoder (llama / mistral / qwen: pre-norm GQA
-attention plus SwiGLU MLP) and the zamba2 hybrid (a Mamba2 backbone with ONE
-parameter-shared attention+MLP block applied after every ``attn_every``
-layers), each with an optional cache.
+"""Model stacks: the decoder-only stack (dense llama / mistral / qwen: pre-
+norm GQA attention plus SwiGLU MLP; MoE: the MLP replaced by shared plus
+routed experts; VLM: the dense stack after the patch embeddings), the
+zamba2 hybrid (a Mamba2 backbone with ONE parameter-shared attention+MLP
+block applied after every ``attn_every`` layers), the seamless encoder-
+decoder and the xLSTM stack, each with an optional cache.
 
-Counterparts of the JAX package's ``transformer.py``: ``decoder_init`` and
-``hybrid_init`` (seeded initialisation), ``ring_info`` (the ring-buffer
-bookkeeping of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``),
-``Decoder.forward`` (``decoder_fwd``) and ``Hybrid.forward``
-(``hybrid_fwd``).  Layers are ``ModuleList``s walked by Python loops in place
-of ``lax.scan``; the parameters of layer ``l`` are slice ``l`` of the JAX
-package's layer-stacked leaves (``[i][j]`` for the hybrid's super-blocks).
+Counterparts of the JAX package's ``transformer.py``: ``seeded_init`` (the
+``*_init`` functions' scheme), ``ring_info`` (the ring-buffer bookkeeping
+of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``),
+``Decoder.forward`` (``decoder_fwd``), ``Hybrid.forward`` (``hybrid_fwd``),
+``EncDec.encode`` / ``EncDec.forward`` (``encode`` / ``encdec_fwd``) and
+``XLSTM.forward`` (``xlstm_fwd``).  Layers are ``ModuleList``s walked by
+Python loops in place of ``lax.scan``; the parameters of layer ``l`` are
+slice ``l`` of the JAX package's layer-stacked leaves (``[i][j]`` for the
+hybrid's super-blocks).
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Attention, RMSNorm, dtype_of, weight
-from repro_torch.models.ssm import MambaLayer
+from repro_torch.models.moe import MoE, moe_fwd, moe_per_row
+from repro_torch.models.ssm import MambaLayer, XLSTMPair
 
 
 def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
@@ -55,28 +60,46 @@ def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
 
 
 class DecoderLayer(nn.Module):
+    """Pre-norm attention and SwiGLU MLP, or, for an MoE config, the
+    ``MoE`` layer (``moe``) in place of the MLP."""
+
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
+        self.cfg = cfg
         dt = dtype_of(cfg)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.attn = Attention(cfg, device)
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+        if cfg.is_moe:
+            self.moe = MoE(cfg, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv_cache: dict | None = None) -> torch.Tensor:
+        """With a cache every row forms its own MoE groups, as the JAX
+        package's engine decodes (one sequence per call, mapped over the
+        slots); without one the rows' tokens are grouped together, as its
+        ``decoder_fwd`` does (the aux loss is not returned: the port does
+        not train)."""
         x = x + self.attn(self.ln1(x), positions, kv_cache)
-        return x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if not self.cfg.is_moe:
+            return x + self.mlp(h)
+        moe = moe_fwd if kv_cache is None else moe_per_row
+        return x + moe(self.moe, self.cfg, h)[0]
 
 
 class Decoder(nn.Module):
-    """Token embedding, the layers, the final norm and the (tied) head."""
+    """Token embedding, the layers, the final norm and the (tied) head:
+    the dense, MoE and VLM families (a VLM's patch embeddings come in as
+    ``prefix_embeds``)."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
-        if cfg.family != "dense" or cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: only the dense and hybrid families are ported")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                             "decoder-only stack")
         self.cfg = cfg
         dt = dtype_of(cfg)
         self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
@@ -87,17 +110,22 @@ class Decoder(nn.Module):
             else weight((cfg.d_model, cfg.vocab), dt, device)
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                last_only: bool = False, fresh: bool = False
+                last_only: bool = False, fresh: bool = False,
+                prefix_embeds: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict | None]:
         """Returns (logits, new_cache).
 
         tokens: (B, S) int.  cache: {"k"/"v": (L,B,kv_len,Hkv,hd), "kpos":
         (B,kv_len), "pos": (B,), "page_size": int} for serving; its k/v are
         written in place and the returned cache shares them.  ``fresh``
-        says every row of the cache is at position 0.
+        says every row of the cache is at position 0.  prefix_embeds
+        (B, F, d) go in front of the token embeddings (cast to the model
+        dtype); the positions, the ring and ``pos`` then cover F + S.
         """
         cfg = self.cfg
         x = self.embed[tokens.long()]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
         if cache is None:
             positions = torch.arange(x.shape[1], device=x.device)
             for layer in self.layers:
@@ -190,11 +218,150 @@ class Hybrid(nn.Module):
         return x @ self.lm_head, new_cache
 
 
-def _fill_weights(net: nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's scheme: embedding N(0, 0.02), every other 2-D
-    weight N(0, 1/in); norms and 1-D parameters keep their constructed
-    values.  Numbers are drawn in f32 on the CPU from ``generator``, in
-    parameter order, so a seed gives the same weights on every device."""
+class EncoderLayer(nn.Module):
+    """Pre-norm bidirectional self-attention and SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        h = self.ln1(x)
+        x = x + self.attn(h, positions, kv_source=h)
+        return x + self.mlp(self.ln2(x))
+
+
+class CrossDecoderLayer(nn.Module):
+    """Pre-norm causal self-attention, cross-attention over the encoder
+    output (``xattn``, after ``ln_x``) and SwiGLU MLP."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        dt = dtype_of(cfg)
+        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.attn = Attention(cfg, device)
+        self.ln_x = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.xattn = Attention(cfg, device)
+        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
+
+    def forward(self, x: torch.Tensor, enc_out: torch.Tensor,
+                positions: torch.Tensor, kv_cache: dict | None = None
+                ) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), positions, kv_cache)
+        x = x + self.xattn(self.ln_x(x), positions, kv_source=enc_out)
+        return x + self.mlp(self.ln2(x))
+
+
+class EncDec(nn.Module):
+    """seamless-m4t: a bidirectional encoder over the frontend's frame
+    embeddings (``encoder``, then ``ln_enc``) and a causal decoder with
+    cross-attention (``decoder``), a token embedding, ``ln_f`` and an
+    untied head."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"{cfg.name}: not an encoder-decoder config")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
+        self.encoder = nn.ModuleList(EncoderLayer(cfg, device)
+                                     for _ in range(cfg.enc_layers))
+        self.decoder = nn.ModuleList(CrossDecoderLayer(cfg, device)
+                                     for _ in range(cfg.n_layers))
+        self.ln_enc = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
+
+    def encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, F, d) -> encoder output (B, F, d)."""
+        x = src_embeds.to(self.embed.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for layer in self.encoder:
+            x = layer(x, positions)
+        return self.ln_enc(x)
+
+    def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
+                cache: dict | None = None, last_only: bool = False,
+                fresh: bool = False) -> tuple[torch.Tensor, dict | None]:
+        """Returns (logits, new_cache); the cache is the decoder's, as
+        ``Decoder.forward``'s (the caller keeps ``enc_out`` beside it)."""
+        x = self.embed[tokens.long()]
+        if cache is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+            for layer in self.decoder:
+                x = layer(x, enc_out, positions)
+            new_cache = None
+        else:
+            pos = cache["pos"]
+            ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
+                                       cache["kpos"], fresh,
+                                       cache["page_size"])
+            for l, layer in enumerate(self.decoder):
+                kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
+                x = layer(x, enc_out, ring["q_pos"], kv)
+            new_cache = {"k": cache["k"], "v": cache["v"],
+                         "pos": pos + x.shape[1], "kpos": new_kpos,
+                         "page_size": cache["page_size"]}
+        if last_only:
+            x = x[:, -1:]      # serving prefill: head for last token only
+        return self.ln_f(x) @ self.lm_head, new_cache
+
+
+class XLSTM(nn.Module):
+    """xLSTM: embedding, ``n_layers // 2`` (mLSTM, sLSTM) pairs, final norm
+    and an untied head.  No attention, so no kernel: every step is plain
+    PyTorch ops, as every step is jnp in the JAX package."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        if not (cfg.family == "ssm" and cfg.xlstm):
+            raise ValueError(f"{cfg.name}: not an xLSTM config")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
+        self.pairs = nn.ModuleList(XLSTMPair(cfg, device)
+                                   for _ in range(cfg.n_layers // 2))
+        self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+                last_only: bool = False, fresh: bool = False
+                ) -> tuple[torch.Tensor, dict | None]:
+        """Returns (logits, new_cache).  cache: {"mlstm_C" (P, B, h, dh,
+        dh), "mlstm_n" (P, B, h, dh), "mlstm_m" (P, B, h), "slstm_c"/"_n"/
+        "_h"/"_m" (P, B, d), all f32, "pos" (B,)}, P the pairs; the states
+        are written in place and the returned cache shares them.  Every
+        row's recurrence starts from its own state, so ``fresh`` changes
+        nothing."""
+        x = self.embed[tokens.long()]
+        for i, pair in enumerate(self.pairs):
+            x = pair(x, None if cache is None else
+                     {k: v[i] for k, v in cache.items() if k != "pos"})
+        new_cache = None if cache is None else dict(
+            cache, pos=cache["pos"] + tokens.shape[1])
+        if last_only:
+            x = x[:, -1:]      # serving prefill: head for last token only
+        return self.ln_f(x) @ self.lm_head, new_cache
+
+
+def seeded_init(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill any of the stacks with the JAX package's scheme: embedding
+    N(0, 0.02), every other weight of two or more axes N(0, 1/fan_in) with
+    fan_in its next-to-last axis (a dense ``(in, out)`` weight's ``in``, an
+    expert's ``(E, d, f)`` d and ``(E, f, d)`` f, the sLSTM's recurrent
+    ``(h, dh, 4dh)`` dh).  Norm scales and 1-D parameters keep the values
+    the modules set: 1 for norms; a Mamba2 layer's f32 ``A_log`` =
+    log(linspace(1, 16, h)), ``D`` = 1, ``dt_bias`` = 0; an mLSTM's
+    ``f_bias`` and the sLSTM's forget-gate ``bias`` quarter 3.0.  Numbers
+    are drawn in f32 on the CPU from ``generator``, in parameter order, so
+    a seed gives the same weights on every device."""
 
     def fill(param: nn.Parameter, std: float) -> None:
         w = torch.randn(param.shape, generator=generator,
@@ -203,25 +370,6 @@ def _fill_weights(net: nn.Module, generator: torch.Generator) -> None:
 
     fill(net.embed, 0.02)
     for name, param in net.named_parameters():
-        if name != "embed" and param.dim() == 2:
-            fill(param, 1.0 / math.sqrt(param.shape[0]))
-
-
-def decoder_init(cfg: ModelConfig, device: torch.device,
-                 generator: torch.Generator) -> Decoder:
-    """Seeded initialisation with the JAX package's scheme: embedding
-    N(0, 0.02), dense weights N(0, 1/in), norm scales 1."""
-    dec = Decoder(cfg, device)
-    _fill_weights(dec, generator)
-    return dec
-
-
-def hybrid_init(cfg: ModelConfig, device: torch.device,
-                generator: torch.Generator) -> Hybrid:
-    """Seeded initialisation with the JAX package's scheme: as
-    ``decoder_init``, plus each Mamba2 layer's f32 ``A_log`` =
-    log(linspace(1, 16, h)), ``D`` = 1 and ``dt_bias`` = 0 (set by the
-    module) and its norm scales 1."""
-    net = Hybrid(cfg, device)
-    _fill_weights(net, generator)
+        if name != "embed" and param.dim() >= 2:
+            fill(param, 1.0 / math.sqrt(param.shape[-2]))
     return net

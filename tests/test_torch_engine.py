@@ -261,12 +261,13 @@ def _strip(rep: dict) -> dict:
 
 
 def engine_parity(jm, params, model, workload) -> list[tuple]:
-    """One workload through the JAX engine and through the port's, the port
-    fed the JAX engine's inputs at every model call.  Asserts that the
-    reports, the batches at each tap and the loop's state are equal;
-    returns the (port, JAX) logits of every call, for the caller to hold
-    to its tolerance."""
-    _, kw, static, specs, steps = WORKLOADS[workload]
+    """One workload (a name of ``WORKLOADS``, or such an entry itself)
+    through the JAX engine and through the port's, the port fed the JAX
+    engine's inputs at every model call.  Asserts that the reports, the
+    batches at each tap and the loop's state are equal; returns the (port,
+    JAX) logits of every call, for the caller to hold to its tolerance."""
+    _, kw, static, specs, steps = (WORKLOADS[workload]
+                                   if isinstance(workload, str) else workload)
     jrep, jbatches, calls, jstate = _run_jax(jm, params, kw, static, specs,
                                              steps)
 

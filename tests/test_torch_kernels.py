@@ -87,6 +87,39 @@ def test_flash_attention_matches_jax(s, d, hq, hkv, window, bf16, interpret):
                 interpret)
 
 
+# bidirectional attention (causal=False) with Sq != Skv, as the encoder
+# (Sq = Skv) and the cross-attention (prefill Sq < Skv, decode Sq = 1) call
+# it: (sq, skv, hq, hkv, d, bf16)
+FLASH_BIDIRECTIONAL = [
+    (200, 200, 4, 4, 64, False),
+    (64, 200, 4, 4, 64, False),
+    (1, 200, 4, 4, 64, False),
+    (130, 333, 8, 2, 128, False),
+    (300, 70, 8, 2, 120, False),
+    (64, 200, 4, 4, 64, True),
+]
+
+
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,bf16", FLASH_BIDIRECTIONAL)
+def test_flash_bidirectional_matches_jax(sq, skv, hq, hkv, d, bf16):
+    rng = np.random.default_rng(sq * 1000 + skv + d)
+    q = _normal(rng, (2, sq, hq, d))
+    k, v = (_normal(rng, (2, skv, hkv, d)) for _ in range(2))
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 \
+        else (jnp.float32, torch.float32)
+    got = ops.flash_attention(*(_to_torch(x, tdt) for x in (q, k, v)),
+                              causal=False)
+    assert got.dtype == tdt and got.shape == (2, sq, hq, d)
+    jq, jk, jv = (_to_jax(x, jdt) for x in (q, k, v))
+    tol = BF16_TOL if bf16 else F32_TOL
+    for want in (jref.flash_attention_ref(jq, jk, jv, causal=False),
+                 flash_attention_kernel(jq, jk, jv, causal=False,
+                                        interpret=True)):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   atol=tol, rtol=tol)
+
+
 def _paged_inputs(seed, b, page, per_seq, hq, hkv, d, n_pages, lengths,
                   permute):
     rng = np.random.default_rng(seed)

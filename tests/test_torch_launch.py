@@ -22,6 +22,11 @@ ARGV = {
                "--report"],
     "llama_no_mitigate": ["--arch", "llama3.2-3b", "--requests", "8",
                           "--no-mitigate", "--seed", "3", "--report"],
+    "qwen2_moe": ["--arch", "qwen2-moe-a2.7b", "--requests", "12",
+                  "--report"],
+    "granite_moe": ["--arch", "granite-moe-3b-a800m", "--requests", "8",
+                    "--slots", "8", "--seed", "1", "--report"],
+    "xlstm": ["--arch", "xlstm-125m", "--requests", "8", "--report"],
 }
 
 
