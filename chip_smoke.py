@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
            the serving paths' shapes (qwen3-0.6b's, zamba2-7b's, llama3.2-
            3b's; flash also bidirectional at seamless-m4t-large-v2's encoder
            and cross-attention shapes) and at edge cases; kernel, plain and
-           library times with CUDA events, each two ways (see Timer)
+           library times with CUDA events, each two ways (see Timer); the
+           SSD backward at zamba2-7b's shape against its plain version and
+           autograd of the plain forward; flash and paged refusing a
+           gradient on the card
   path     at full width, f32, the same seeded weights on the CPU (plain
            versions) and on the card (kernels), a 200-token prompt and 8
            teacher-forced decode steps: qwen3-0.6b with 2 layers,
@@ -23,6 +26,15 @@ Phases, each printing one JSON line:
            and granite-moe-3b-a800m with 2, xlstm-125m with 2 (one pair),
            llava-next-mistral-7b with 2 after 576 seeded patch embeddings,
            and seamless-m4t-large-v2 with 2 + 2 over 200 seeded frames
+  train    the loss and every gradient at full width, f32, the same
+           seeded weights on the CPU and on the card, 256 tokens:
+           qwen3-0.6b (2 layers), zamba2-7b (7: the SSD forward and
+           backward kernels), qwen2-moe-a2.7b (2), xlstm-125m (one pair);
+           the MoE experts' backward in bf16 against f32; then full-size
+           qwen3-0.6b (bf16, remat) through repro_torch.launch.train's set-
+           up: 12 steps of 8 x 512 tokens in 2 microbatches, a crash at step
+           6, a restore from its checkpoint, the run finished, three steps
+           on one batch (the loss must fall) and a profiled step
   serve    behind InferenceEngine with telemetry and mitigation, full width
            and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
            then zamba2-7b serving 8
@@ -58,6 +70,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import random
 import re
@@ -74,12 +87,29 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_TOL = 2e-4      # the JAX package's own SSD scan tolerance
+# the SSD backward: each gradient to this fraction of its largest magnitude;
+# da looser, as a sum over the chunk of differences of cumulative decays
+# that reach -1e3 (ssd_scan.py's _cumsum note)
+SSD_BWD_TOL = 1e-4
+SSD_BWD_DA_TOL = 1e-3
+TRAIN_TOL = 1e-3    # train path: loss and each gradient, card against CPU
+# The hybrid's gradients, card against CPU, are a sanity bound only, on
+# each tensor's normwise error ||d|| / ||g||: through seven full-width
+# Mamba2 layers with random weights, the two devices' f32 sum orders move
+# the early layers' gradients by several percent in that norm, with the
+# plain versions on the card as with the kernels (the train case reports
+# both).  What the kernels change is held apart: their gradients against
+# the plain versions' on the same card, to TRAIN_TOL of each tensor's max.
+HYBRID_TRAIN_TOL = 0.15
 SSD_BUCKETS = (64, 128, 256, 512, 1024)   # the engine's prefill buckets
 
 REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:137",
     "paged_attention": "src/repro/kernels/paged_attention.py:128",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
+    # the gradient of the same function: the TPU kernel has no backward,
+    # the JAX package differentiates its jnp form (ssm.py:ssd_chunked)
+    "ssd_scan_bwd": "src/repro/kernels/ssd_scan.py:88",
 }
 REPLACES_FN = {
     "flash_attention": "src/repro/kernels/flash_attention.py:"
@@ -87,11 +117,13 @@ REPLACES_FN = {
     "paged_attention": "src/repro/kernels/paged_attention.py:"
                        "paged_attention_kernel",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:ssd_scan_kernel",
+    "ssd_scan_bwd": "jax.grad of src/repro/models/ssm.py:ssd_chunked",
 }
 SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "paged_attention": "src/repro_torch/kernels/csrc/paged_attention.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
 }
 
 
@@ -345,6 +377,109 @@ def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
     return row
 
 
+def ssd_bwd_work(b, l, h, p, n, init: bool, dfinal: bool
+                 ) -> tuple[float, float]:
+    """FLOP and bytes the SSD scan's gradients need on these shapes: C B^T
+    once per batch and chunk; per head and chunk the lower triangles of
+    dy x^T, G^T dy, ds B and ds^T C, and five (chunk x p x n) products (the
+    chunk's own state, which the state before the next chunk needs, loc,
+    dy prev, x dS and B dS^T); every input (x, a, B, C, dy and the states)
+    read once and every gradient written once.  f32 peak, as the forward."""
+    flops = 0.0
+    for c0 in range(0, l, 128):
+        lc = min(128, l - c0)
+        tri = lc * (lc + 1) / 2
+        flops += b * tri * n * 2
+        flops += b * h * (tri * (2 * p + 2 * n) * 2 + 5 * lc * n * p * 2)
+    states = b * h * p * n * ((2 if init else 0) + (1 if dfinal else 0))
+    nbytes = 4.0 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n
+                    + states)
+    return flops, nbytes
+
+
+def ssd_bwd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, dfinal,
+                 time_it):
+    """``ssd_inputs`` with dy N(0, 1) and, with ``dfinal``, the final
+    state's gradient N(0, 1): the CUDA backward against
+    ``ssd_scan_bwd_plain`` and against autograd of ``ssd_scan_plain``, both
+    on the card, each gradient to SSD_BWD_TOL of its largest (da to
+    SSD_BWD_DA_TOL)."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+                                              ssd_scan_bwd_plain,
+                                              ssd_scan_plain)
+    x, a, B, C, s0 = ssd_inputs(torch, gen, b, l, h, p, n, init)
+    dy = torch.randn((b, l, h, p), generator=gen, device="cuda")
+    df = (torch.randn((b, h, p, n), generator=gen, device="cuda")
+          if dfinal else None)
+    got = ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df)
+    plain = ssd_scan_bwd_plain(x, a, B, C, s0, dy, df)
+    ins = [t.clone().requires_grad_() if t is not None else None
+           for t in (x, a, B, C, s0)]
+    y, final = ssd_scan_plain(*ins)
+    loss = (y * dy).sum() + ((final * df).sum() if dfinal else 0)
+    auto = torch.autograd.grad(loss, [t for t in ins if t is not None])
+    auto = list(auto) + ([None] if s0 is None else [])
+    torch.cuda.synchronize()
+    row = {"b": b, "l": l, "h": h, "p": p, "n": n, "init_state": init,
+           "dfinal": dfinal, "dtype": "float32"}
+    errs = {}
+    for name, g, want, want2 in zip(("dx", "da", "dB", "dC", "dinit"), got,
+                                    plain, auto):
+        if want is None:
+            check(g is None, f"SSD backward gave {name} without a state")
+            continue
+        check(bool(torch.isfinite(g).all()), f"SSD backward {name} not "
+              "finite")
+        scale = float(want.abs().max()) or 1.0
+        tol = SSD_BWD_DA_TOL if name == "da" else SSD_BWD_TOL
+        e1 = float((g - want).abs().max())
+        e2 = float((g - want2).abs().max())
+        check(e1 <= tol * scale and e2 <= tol * scale,
+              f"SSD backward {name} at {row}: {e1} from the plain "
+              f"backward, {e2} from autograd of the plain forward, max "
+              f"{scale}")
+        errs[name] = {"max_abs_err": e1, "autograd_err": e2, "max": scale}
+    row["errors"] = errs
+    row["max_abs_err"] = max(e["max_abs_err"] for e in errs.values())
+    if time_it:
+        timer.into(row, "", lambda: ssd_scan_bwd_cuda(x, a, B, C, s0, dy,
+                                                      df))
+        row["host_ms"] = timer.last_host_ms
+        timer.into(row, "plain_", lambda: ssd_scan_bwd_plain(
+            x, a, B, C, s0, dy, df), iters=3)
+        # no single PyTorch call is the scan's backward
+        row["library_ms"] = row["library_device_ms"] = None
+        flops, nbytes = ssd_bwd_work(b, l, h, p, n, init, dfinal)
+        row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+    return row
+
+
+def refuses_grad(torch, ops) -> dict:
+    """Flash and paged attention on the card raise when asked to record a
+    gradient (they have no backward kernel), and run under no_grad."""
+    q = torch.randn((1, 64, 4, 64), device="cuda", requires_grad=True)
+    pages = torch.randn((4, 16, 2, 64), device="cuda")
+    table = torch.arange(4, dtype=torch.int32, device="cuda").view(1, 4)
+    lens = torch.tensor([40], dtype=torch.int32, device="cuda")
+    calls = {"flash_attention": lambda: ops.flash_attention(q, q, q),
+             "paged_attention": lambda: ops.paged_attention(
+                 q[:, 0], pages, pages, table, lens)}
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised is not None and "no backward" in raised,
+              f"{name} on the card did not refuse a gradient: {raised}")
+        with torch.no_grad():
+            call()
+        out[name] = raised
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernels(torch, ops, timer) -> dict:
     from repro_torch.kernels.paged_attention import paged_plan
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -484,8 +619,23 @@ def phase_kernels(torch, ops, timer) -> dict:
                             hq=24, hkv=8, d=128, lengths=llama_lens,
                             permute=False, dtype="bfloat16", time_it=True))
     paged[-1]["model"] = QUICKSTART_ARCH
+    # the SSD backward at zamba2-7b's shape: with an initial state and the
+    # final state's gradient, then without either, as training calls it
+    # (the largest bucket, the main row); ragged; small heads and dims
+    bwd = []
+    for init in (True, False):
+        bwd.append(ssd_bwd_case(torch, ops, timer, gen, b=1, l=1024, h=112,
+                                p=64, n=64, init=init, dfinal=init,
+                                time_it=True))
+        bwd[-1]["model"] = "zamba2-7b"
+    bwd[-1]["main"] = True
+    for kw in (dict(b=1, l=200, h=112, p=64, n=64, init=False, dfinal=True),
+               dict(b=2, l=256, h=3, p=32, n=16, init=True, dfinal=False),
+               dict(b=1, l=100, h=4, p=8, n=4, init=True, dfinal=True)):
+        bwd.append(ssd_bwd_case(torch, ops, timer, gen, time_it=False, **kw))
     return {"flash_attention": flash, "paged_attention": paged,
-            "ssd_scan": ssd}
+            "ssd_scan": ssd, "ssd_scan_bwd": bwd,
+            "refuse_grad": refuses_grad(torch, ops)}
 
 
 # ----------------------------------------------------------------------
@@ -510,7 +660,7 @@ def kernel_launches(cfg, prefills: int, steps: int) -> dict[str, int]:
         flash += (cfg.enc_layers + cfg.n_layers) * prefills \
             + cfg.n_layers * steps
     return {"flash_attention": flash, "paged_attention": attn * steps,
-            "ssd_scan": mamba * prefills}
+            "ssd_scan": mamba * prefills, "ssd_scan_bwd": 0}
 
 
 def path_case(torch, ops, arch: str, n_layers: int, enc_layers: int = 0,
@@ -596,7 +746,301 @@ def phase_path(torch, ops) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 4: serve each model at full size behind the engine
+# phase 4: training, the card against the CPU, then full-size qwen3-0.6b
+# ----------------------------------------------------------------------
+
+TRAIN_FULL = ["--arch", "qwen3-0.6b", "--full-config", "--steps", "12",
+              "--batch", "8", "--seq", "512", "--micro", "2", "--seed", "0"]
+TRAIN_CRASH_AT = 6
+
+
+def train_launches(cfg) -> dict[str, int]:
+    """Launches one loss and gradient of ``cfg`` make: training attends
+    through sdpa (no flash, as the JAX package trains), every Mamba2 layer
+    scans forward once, and once more where ``remat`` recomputes it in the
+    backward, and runs the SSD backward once."""
+    mamba = cfg.n_layers if cfg.family == "hybrid" else 0
+    return {**dict.fromkeys(REPLACES, 0),
+            "ssd_scan": mamba * (2 if cfg.remat else 1),
+            "ssd_scan_bwd": mamba}
+
+
+class plain_ssd_on_card:
+    """Within it, ``ops.ssd_scan`` runs the SSD scan's plain versions on CUDA
+    tensors (forward and backward), so a comparison on the card isolates
+    what the kernels change."""
+
+    def __init__(self, ops) -> None:
+        self.ops = ops
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan
+        self.saved = (self.ops.ssd_scan_cuda, self.ops.ssd_scan_bwd_cuda)
+        self.ops.ssd_scan_cuda = ssd_scan.ssd_scan_plain
+        self.ops.ssd_scan_bwd_cuda = ssd_scan.ssd_scan_bwd_plain
+
+    def __exit__(self, *exc) -> None:
+        self.ops.ssd_scan_cuda, self.ops.ssd_scan_bwd_cuda = self.saved
+
+
+def rel_errs(torch, got: dict, want: dict, norm: bool = False
+             ) -> tuple[float, str]:
+    """The worst gradient's max |got - want| over its largest |want|, or,
+    with ``norm``, ||got - want|| over ||want||."""
+    worst = (0.0, "")
+    for k, w in want.items():
+        g = got[k].float().cpu()
+        check(bool(torch.isfinite(g).all()), f"gradient of {k} not finite")
+        w = w.float().cpu()
+        if norm:
+            err = float((g - w).norm()) / (float(w.norm()) or 1.0)
+        else:
+            err = float((g - w).abs().max()) / (float(w.abs().max()) or 1.0)
+        worst = max(worst, (err, k))
+    return worst
+
+
+def train_case(torch, ops, arch: str, n_layers: int, b: int = 1,
+               s: int = 256) -> dict:
+    """The same seeded f32 weights on the CPU (plain versions) and on the
+    card (kernels), the registry's width and activation checkpointing, one
+    batch of b x s seeded tokens: the loss and every parameter's gradient
+    must agree to TRAIN_TOL of the CPU's (each gradient to that fraction of
+    its largest magnitude), with the card's exact kernel launches.  The
+    hybrid's gradients are held to the plain versions' on the card at
+    TRAIN_TOL, and to the CPU's only within HYBRID_TRAIN_TOL (normwise)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers, dtype="float32",
+                              name=f"{arch}-{n_layers}l-f32")
+    cpu = build_model(cfg, device="cpu", seed=1)
+    net = type(cpu.decoder)(cfg, torch.device("cuda"))
+    net.load_state_dict(cpu.decoder.state_dict())
+    models = {"cpu": cpu, "cuda": Model(cfg, net, torch.device("cuda"))}
+    rng = random.Random(3)
+    toks = torch.tensor([[rng.randrange(cfg.vocab) for _ in range(s)]
+                         for _ in range(b)], dtype=torch.int32)
+    labels = torch.cat([toks[:, 1:], torch.full((b, 1), -1,
+                                                dtype=torch.int32)], 1)
+    batch = {"tokens": toks, "labels": labels}
+
+    def loss_and_grads(m):
+        params = dict(m.decoder.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        loss = m.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return float(loss.detach()), dict(zip(params, grads))
+
+    cpu_loss, cpu_g = loss_and_grads(cpu)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card_loss, card_g = loss_and_grads(models["cuda"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    card_s = time.perf_counter() - t0
+    check(math.isfinite(card_loss), f"{arch} train loss not finite")
+    loss_err = abs(card_loss - cpu_loss)
+    check(loss_err <= TRAIN_TOL * max(1.0, abs(cpu_loss)),
+          f"{arch} train loss {card_loss} on the card, {cpu_loss} on the "
+          "CPU")
+    hybrid = cfg.family == "hybrid"
+    worst = rel_errs(torch, card_g, cpu_g)
+    if hybrid:
+        normwise = rel_errs(torch, card_g, cpu_g, norm=True)
+        check(normwise[0] <= HYBRID_TRAIN_TOL, f"{arch}: gradient of "
+              f"{normwise[1]} off by {normwise[0]} (normwise) on the card")
+    else:
+        check(worst[0] <= TRAIN_TOL, f"{arch}: gradient of {worst[1]} off "
+              f"by {worst[0]} of its max on the card")
+    want = train_launches(cfg)
+    check(counts == want, f"{arch} train launches {counts}, want {want}")
+    row = {"model": arch, "family": cfg.family, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": b, "seq": s, "loss_cpu": cpu_loss, "loss_card": card_loss,
+           "loss_err": loss_err, "worst_grad_rel_err": worst[0],
+           "worst_grad": worst[1], "params": len(cpu_g),
+           "card_s": card_s, "launches": counts}
+    if hybrid:
+        with plain_ssd_on_card(ops):
+            plain_loss, plain_g = loss_and_grads(models["cuda"])
+        kern = rel_errs(torch, card_g, plain_g)
+        plain = rel_errs(torch, plain_g, cpu_g)
+        row.update(normwise_vs_cpu=normwise[0],
+                   normwise_worst=normwise[1])
+        check(kern[0] <= TRAIN_TOL and abs(card_loss - plain_loss)
+              <= TRAIN_TOL * max(1.0, abs(plain_loss)),
+              f"{arch}: with the kernels the gradient of {kern[1]} is off "
+              f"by {kern[0]} of its max from the plain versions on the card")
+        row.update(kernels_vs_plain_on_card=kern[0],
+                   kernels_vs_plain_worst=kern[1],
+                   plain_on_card_vs_cpu=plain[0],
+                   plain_on_card_vs_cpu_worst=plain[1])
+        del plain_g
+    del cpu, net, models, cpu_g, card_g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_bf16_grads(torch) -> dict:
+    """The routed experts' backward through ``F.grouped_mm`` on the card in
+    bf16 (CUTLASS's grouped GEMM) against f32 (the per-group fallback) on
+    the same bf16-rounded weights and input: qwen2-moe-a2.7b's widths, 512
+    tokens.  Both route alike (the router is f32 on the same values);
+    gradients of x and of the expert weights to 3e-2 of their largest."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.moe import MoE, moe_fwd
+    cfg = ARCHS["qwen2-moe-a2.7b"]
+    gen = torch.Generator().manual_seed(4)
+    grads = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        moe = MoE(c, torch.device("cuda"))
+        gen.manual_seed(4)
+        with torch.no_grad():
+            for p in moe.parameters():
+                w = torch.randn(p.shape, generator=gen) / math.sqrt(
+                    p.shape[-2])
+                p.copy_(w.to(torch.bfloat16).float())
+        x = (torch.randn((2, 256, cfg.d_model), generator=gen)
+             .to(torch.bfloat16).to(getattr(torch, dtype)).cuda()
+             .requires_grad_())
+        wts = torch.randn((2, 256, cfg.d_model), generator=gen).cuda()
+        ps = [x, moe.w_gate, moe.w_up, moe.w_down]
+        for p in ps[1:]:
+            p.requires_grad_(True)
+        out, aux = moe_fwd(moe, c, x)
+        loss = (out.float() * wts).sum() + aux
+        grads[dtype] = [g.float() for g in torch.autograd.grad(loss, ps)]
+    errs = {}
+    for name, g, want in zip(("x", "w_gate", "w_up", "w_down"),
+                             grads["bfloat16"], grads["float32"]):
+        rel = float((g - want).abs().max()) / float(want.abs().max())
+        check(rel <= 3e-2, f"MoE bf16 gradient of {name} off by {rel} of "
+              "its max from f32")
+        errs[name] = rel
+    return {"model": cfg.name, "tokens": 512, "rel_err_bf16_vs_f32": errs}
+
+
+def train_full(torch, ops) -> dict:
+    """Full-size qwen3-0.6b, bf16, activation checkpointing, through
+    ``repro_torch.launch.train``'s own set-up (``setup``: seeded weights,
+    ``pack_documents`` behind the ``Prefetcher``, the ``Trainer``): 12
+    steps of batch 8 x 512 tokens in 2 microbatches, with a checkpoint at
+    step 6 (and one kept); a crash injected at step 6, a new trainer that
+    restores step 6 exactly and finishes the run.  Then three steps on one
+    batch at lr 1e-3 (the loss must fall: the reference's memorisation
+    check) and the profile of two steps."""
+    import shutil
+    from repro_torch.data import DataConfig, SyntheticCorpus, pack_documents
+    from repro_torch.launch import train as launch
+    from repro_torch.training import AdamWConfig
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    args = launch.parse_args(TRAIN_FULL + ["--ckpt", str(ckdir)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    def start():
+        trainer, data = launch.setup(args)
+        trainer.tcfg = dataclasses.replace(trainer.tcfg, ckpt_every=6,
+                                           ckpt_keep=1)
+        return trainer, data
+
+    first, data = start()
+    setup_s = time.perf_counter() - t0
+    try:
+        first.run(data, crash_at=TRAIN_CRASH_AT)
+        raise AssertionError("the injected crash did not happen")
+    except RuntimeError as e:
+        check("injected failure" in str(e), f"train crashed: {e}")
+    check(first.step == TRAIN_CRASH_AT, f"crashed at step {first.step}")
+    trainer, data = start()
+    t1 = time.perf_counter()
+    check(trainer.maybe_restore() and trainer.step == TRAIN_CRASH_AT,
+          f"restore gave step {trainer.step}")
+    restore_s = time.perf_counter() - t1
+    check(all(torch.equal(trainer.params[k], p)
+              for k, p in first.params.items()),
+          "restored weights differ from the crashed run's")
+    check(all(torch.equal(trainer.opt_state[s_][k], first.opt_state[s_][k])
+              for s_ in ("m", "v") for k in first.params),
+          "restored moments differ from the crashed run's")
+    hist = trainer.run(data)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    run_s = time.perf_counter() - t0
+    check(trainer.step == args.steps, f"trained to step {trainer.step}")
+    runs = first.history + hist
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in runs), "full-size train: loss not finite")
+    cfg = trainer.model.cfg
+    want = train_launches(cfg)
+    check(counts == want, f"full-size train launches {counts}, want {want}")
+    # the warm steps of each trainer (each one's first step is its warm-up)
+    secs = sorted(h["sec"] for h in first.history[1:] + hist[1:])
+    step_s = secs[len(secs) // 2]
+    n_params = sum(p.numel() for p in trainer.params.values())
+    tokens = args.batch * args.seq
+    del first
+    gc.collect()
+    # memorisation: three steps on one batch at lr 1e-3
+    trainer.tcfg = dataclasses.replace(
+        trainer.tcfg, optimizer=AdamWConfig(lr=1e-3, warmup_steps=1))
+    batch = trainer._microbatch(next(pack_documents(SyntheticCorpus(
+        DataConfig(vocab=cfg.vocab, seq_len=args.seq, batch=args.batch,
+                   seed=5)), 1)))
+    memo = [float(trainer._train_step(batch)[0]) for _ in range(3)]
+    check(all(math.isfinite(x) for x in memo) and memo[-1] < memo[0],
+          f"full-size train: the loss on one batch did not fall: {memo}")
+    profile = profile_calls(torch, lambda: trainer._train_step(batch), 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    disk = shutil.disk_usage(ROOT)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "remat": cfg.remat, "params": n_params, "argv": TRAIN_FULL,
+           "ckpt_every": 6, "crash_at": TRAIN_CRASH_AT,
+           "losses": [h["loss"] for h in runs],
+           "grad_norms": [h["grad_norm"] for h in runs],
+           "lrs": [h["lr"] for h in runs],
+           "step_secs": [h["sec"] for h in runs],
+           "memorise_losses": memo, "setup_s": setup_s,
+           "restore_s": restore_s, "run_s": run_s,
+           "ms_per_step": step_s * 1e3, "tokens_per_step": tokens,
+           "tokens_per_s": tokens / step_s,
+           "model_flop_share": 6.0 * n_params * tokens / step_s
+           / PEAK_FLOPS["bfloat16"],
+           "peak_mem_gib": peak, "disk_free_gb": disk.free / 1e9,
+           "launches": counts, "profile": profile}
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, ops) -> dict:
+    """The training path: four families at full width with the depth cut,
+    the card against the CPU; the MoE experts' bf16 backward; full-size
+    qwen3-0.6b through the launcher's set-up."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = [train_case(torch, ops, "qwen3-0.6b", 2),
+             # one super-block (6 Mamba2 layers + the shared block) and a
+             # one-layer tail: the SSD forward and backward kernels
+             train_case(torch, ops, "zamba2-7b", 7),
+             train_case(torch, ops, "qwen2-moe-a2.7b", 2),
+             train_case(torch, ops, "xlstm-125m", 2)]        # one pair
+    return {"cases": cases, "moe_bf16": moe_bf16_grads(torch),
+            "full": train_full(torch, ops)}
+
+
+# ----------------------------------------------------------------------
+# phase 5: serve each model at full size behind the engine
 # ----------------------------------------------------------------------
 
 def profile_calls(torch, fn, n: int) -> dict:
@@ -1261,8 +1705,8 @@ def time_ssd_tree(src: Path) -> int:
     return 0
 
 
-PHASES = ("kernels", "path", "serve", "families", "control", "launch",
-          "quickstart")
+PHASES = ("kernels", "path", "train", "serve", "families", "control",
+          "launch", "quickstart")
 
 
 def main() -> int:
@@ -1312,6 +1756,11 @@ def main() -> int:
         t0 = time.perf_counter()
         path = phase_path(torch, ops)
         emit({"phase": "path", "seconds": time.perf_counter() - t0, **path})
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train = phase_train(torch, ops)
+        emit({"phase": "train", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **train})
     if "serve" in phases:
         t0 = time.perf_counter()
         serve = phase_serve(torch, ops)
@@ -1344,13 +1793,16 @@ def main() -> int:
         return 0
 
     # launches on the main paths: each kernel's count summed over the
-    # serve and families cases, the control loop and the quickstart's
-    # serve (each run's counts were set to 0 just before it)
-    runs = serve["cases"] + families["cases"] + [control, quick]
+    # serve and families cases, the control loop, the quickstart's serve
+    # and the training runs (each run's counts were set to 0 just before
+    # it)
+    runs = (serve["cases"] + families["cases"] + [control, quick]
+            + train["cases"] + [train["full"]])
     launches = {name: sum(c["launches"][name] for c in runs)
-                for name in kern}
+                for name in REPLACES}
     summary = []
-    for name, rows in kern.items():
+    for name in REPLACES:
+        rows = kern[name]
         main_row = next(r for r in rows if r.get("main"))
         timed = [r for r in rows if "model" in r and "ms" in r]
         # the last timed row of each model is its serve shape (flash: the

@@ -685,7 +685,9 @@ cudaError_t launch_output(const float* x, const float* cbs, const float* C,
 // chunks, CB_FLOATS) are f32 scratch from the caller; heads (1 to 4) and
 // split (1, or 2 where P / 2 is a multiple of 4) are the plan.  Three
 // launches on stream, two for a single chunk (l = 0: a copy of init, or
-// zeros, to the final state).  Returns the CUDA error code of the first
+// zeros, to the final state).  With y null the output pass is left out:
+// the backward (ssd_scan_bwd.cu) takes states (the state before each chunk)
+// and cs from the first two passes.  Returns the CUDA error code of the first
 // launch that failed (0 = all launched), or cudaErrorInvalidValue for what
 // the kernels do not take.
 extern "C" int repro_ssd_scan(const void* x, const void* a, const void* B,
@@ -732,6 +734,7 @@ extern "C" int repro_ssd_scan(const void* x, const void* a, const void* B,
     if (err != cudaSuccess) return int(err);
   }
 
+  if (!y) return 0;
   float* yf = static_cast<float*>(y);
   err = P / split > 32
             ? launch_output<8>(xf, cbf, Cf, csf, st, yf, batch, l, H, P, N,

@@ -8,6 +8,12 @@ same way (the CUDA wrapper checks its own, once, as it is on the decode
 step's host-bound path), so the CPU tests hold the model to what the
 kernels take.
 
+The SSD scan is differentiable: ``ssd_scan`` goes through one
+``torch.autograd.Function`` whose forward and backward are the two CUDA
+kernels for CUDA tensors and the two plain versions for CPU tensors.  Flash
+and paged attention have no backward kernel: on the card they raise when
+asked to record a gradient, rather than give one without the attention.
+
 ``launch_counts`` reads how many times each kernel was launched, and
 ``reset_launch_counts`` sets them to zero, so a run can show that its path
 went through the kernels.
@@ -30,19 +36,32 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.ssd_scan import (
     CHUNK,
     check_ssd_args,
+    check_ssd_bwd_args,
+    ssd_scan_bwd_cuda,
+    ssd_scan_bwd_plain,
     ssd_scan_cuda,
     ssd_scan_plain,
 )
 
 KERNELS = {"flash_attention": flash_attention_cuda,
            "paged_attention": paged_attention_cuda,
-           "ssd_scan": ssd_scan_cuda}
+           "ssd_scan": ssd_scan_cuda,
+           "ssd_scan_bwd": ssd_scan_bwd_cuda}
+
+
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel without a backward must not drop its term from a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel: its CUDA path "
+                           "cannot record a gradient (call it under "
+                           "torch.no_grad(), or train through sdpa)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, D); k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D)."""
     if q.device.type == "cuda":
+        _refuse_grad("flash attention", q, k, v)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     check_flash_args(q, k, v)
     if q.device.type == "cpu":
@@ -56,6 +75,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """q: (B, Hq, D); k/v_pages: (P, page, Hkv, D); block_table
     (B, per_seq) int32; lengths (B,) int32 -> (B, Hq, D)."""
     if q.device.type == "cuda":
+        _refuse_grad("paged attention", q, k_pages, v_pages)
         return paged_attention_cuda(q, k_pages, v_pages, block_table,
                                     lengths)
     check_paged_args(q, k_pages, v_pages, block_table, lengths)
@@ -65,18 +85,47 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     raise ValueError(f"no paged attention for device {q.device}")
 
 
+class SsdScan(torch.autograd.Function):
+    """(y, final) = SSD(x, a, B, C, init_state) with its backward; both
+    halves run on the inputs' device (kernels on the card, plain versions
+    on the CPU).  An unused final state passes no gradient (None) to the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, a, B, C, init_state, chunk):
+        fwd = ssd_scan_cuda if x.device.type == "cuda" else ssd_scan_plain
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, a, B, C, init_state)
+        ctx.chunk = chunk
+        return fwd(x, a, B, C, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, a, B, C, init_state = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.contiguous()
+        if x.device.type == "cuda":
+            grads = ssd_scan_bwd_cuda(x, a, B, C, init_state, dy, dfinal,
+                                      ctx.chunk)
+        else:
+            check_ssd_bwd_args(x, dy, dfinal)
+            grads = ssd_scan_bwd_plain(x, a, B, C, init_state, dy, dfinal,
+                                       ctx.chunk)
+        return (*grads, None)
+
+
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, init_state: torch.Tensor | None = None,
              chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n); init_state
     (b, h, p, n) or None; all f32 -> y (b, l, h, p), final state
-    (b, h, p, n)."""
-    if x.device.type == "cuda":
-        return ssd_scan_cuda(x, a, B, C, init_state, chunk)
-    check_ssd_args(x, a, B, C, init_state, chunk)
+    (b, h, p, n), differentiable in every input."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no SSD scan for device {x.device}")
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, a, B, C, init_state, chunk)
-    raise ValueError(f"no SSD scan for device {x.device}")
+        check_ssd_args(x, a, B, C, init_state, chunk)
+    return SsdScan.apply(x, a, B, C, init_state, chunk)
 
 
 def launch_counts() -> dict[str, int]:

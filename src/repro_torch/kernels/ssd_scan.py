@@ -1,5 +1,6 @@
 """Mamba2 SSD chunk scan on Hopper: the prefill kernel's wrapper, its
-host-side plan and its plain PyTorch version.
+host-side plan and its plain PyTorch version, and the same for its
+backward.
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``: the reference's four steps
 as three CUDA kernels on one stream (two for a single chunk), every chunk
@@ -10,7 +11,15 @@ shape and the SM count alone.  ``ssd_scan_plain`` is the same function in
 plain PyTorch: the JAX model's chunked form (``ssd_chunked``) with its sum
 order, padding a ragged length to whole chunks as ``mamba2_fwd`` does.
 Both take an initial state and return the final one, which
-prefill-with-state needs.  Callers go through ``ops.ssd_scan``.
+prefill-with-state needs.
+
+``ssd_scan_bwd_cuda`` launches ``csrc/ssd_scan_bwd.cu`` after the forward's
+first two passes (``ssd_scan.cu`` without its output pass), which give it
+each chunk's cumulative decay and the state before each chunk again rather
+than keeping them from the forward.  ``ssd_scan_bwd_plain`` computes the
+same gradients in plain PyTorch, pass by pass as the kernels do.  Callers
+go through ``ops.ssd_scan``, whose ``torch.autograd.Function`` runs the
+forward and the backward of one device.
 """
 
 from __future__ import annotations
@@ -166,6 +175,110 @@ def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     return y[:, :l], final
 
 
+def _pad_chunks(chunk: int, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Pad each tensor's axis 1 (the steps) to whole chunks with zeros."""
+    pad = (-tensors[0].shape[1]) % chunk
+    if not pad:
+        return list(tensors)
+    return [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+            for t in tensors]
+
+
+def _reverse_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """out[..., t] = sum of x[..., i] for i >= t, over the last axis."""
+    return x.flip(-1).cumsum(-1).flip(-1)
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                       C: torch.Tensor, init_state: torch.Tensor | None,
+                       dy: torch.Tensor, dfinal: torch.Tensor | None,
+                       chunk: int = CHUNK):
+    """Gradients of ``ssd_scan_plain``'s (y, final) with respect to (x, a,
+    B, C, init_state), given dy (b, l, h, p) and dfinal (b, h, p, n) or
+    None (the final state unused).  Returns (dx, da, dB, dC, dinit); dinit
+    is None without an initial state.
+
+    The passes of ``csrc/ssd_scan_bwd.cu``, each over every chunk and head
+    at once, with cs the chunk's cumulative log-decay, w = exp(total - cs),
+    prev_c the state before chunk c and G[i, j] = (C_i . B_j) exp(cs_i -
+    cs_j) for j <= i:
+      0. the forward's cs and prev, again;
+      1. each chunk's own gradient of the state before it, from its
+         outputs: loc_c = (dy exp(cs))^T C;
+      2. the recurrence across chunks in reverse: dS_c (the gradient of
+         the state after chunk c) = g, then g = loc_c + g exp(total_c),
+         from g = dfinal; the last g is dinit;
+      3. per chunk and head: dx = G^T dy + w (B dS^T); dscore = (dy x^T)
+         exp(segsum); dC_h = dscore B + exp(cs) (dy prev); dB_h = dscore^T
+         C + w (x dS); the gradient of cs, which a reverse cumulative sum
+         within the chunk turns into da;
+      4. dB and dC summed over the heads."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    L = chunk
+    xp, ap, Bp, Cp, dyp = _pad_chunks(L, x, a, B, C, dy)
+    nc = xp.shape[1] // L
+    xc = xp.reshape(b, nc, L, h, p)
+    dyc = dyp.reshape(b, nc, L, h, p)
+    Bc = Bp.reshape(b, nc, L, n)
+    Cc = Cp.reshape(b, nc, L, n)
+    ac = ap.reshape(b, nc, L, h).permute(0, 3, 1, 2)            # (b,h,c,L)
+
+    # 0) the forward's cumulative decay and the state before each chunk
+    cs = _cumsum(ac)                                             # (b,h,c,L)
+    total = cs[..., -1]                                          # (b,h,c)
+    w = torch.exp(total[..., None] - cs)
+    ecs = torch.exp(cs)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, w, xc)
+    carry = (init_state if init_state is not None
+             else x.new_zeros((b, h, p, n)))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(total[:, :, c, None, None]) + states[:, c]
+    prev = torch.stack(prev, dim=1)                              # (b,c,h,p,n)
+
+    # 1) each chunk's own gradient of the state before it
+    loc = torch.einsum("bclhp,bhcl,bcln->bchpn", dyc, ecs, Cc)
+    # 2) the recurrence across chunks, in reverse
+    g = dfinal if dfinal is not None else x.new_zeros((b, h, p, n))
+    dS = [None] * nc
+    for c in reversed(range(nc)):
+        dS[c] = g
+        g = loc[:, c] + g * torch.exp(total[:, :, c, None, None])
+    dS = torch.stack(dS, dim=1)                                  # (b,c,h,p,n)
+    dinit = g if init_state is not None else None
+
+    # 3) each chunk and head
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    seg = (cs[..., :, None] - cs[..., None, :]).masked_fill(~tri, -torch.inf)
+    E = torch.exp(seg)                                           # (b,h,c,L,L)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, None]        # (b,1,c,L,L)
+    G = cb * E
+    dscore = torch.einsum("bcihp,bcjhp->bhcij", dyc, xc) * E
+    M = dscore * cb                         # dG * G: d(cs_i - cs_j) terms
+    dx = (torch.einsum("bhcij,bcihp->bcjhp", G, dyc)
+          + torch.einsum("bhcj,bcjn,bchpn->bcjhp", w, Bc, dS))
+    U = torch.einsum("bcihp,bchpn->bcihn", dyc, prev)
+    V = torch.einsum("bcjhp,bchpn->bcjhn", xc, dS)
+    ecs_t = ecs.permute(0, 2, 3, 1)[..., None]                   # (b,c,L,h,1)
+    w_t = w.permute(0, 2, 3, 1)[..., None]
+    dC_h = torch.einsum("bhcij,bcjn->bcihn", dscore, Bc) + ecs_t * U
+    dB_h = torch.einsum("bhcij,bcin->bcjhn", dscore, Cc) + w_t * V
+    wdw = w * torch.einsum("bcjn,bcjhn->bhcj", Bc, V)
+    dcs = (M.sum(-1) - M.sum(-2)
+           + ecs * torch.einsum("bcin,bcihn->bhci", Cc, U) - wdw)
+    dcs[..., -1] += wdw.sum(-1) + torch.exp(total) * torch.einsum(
+        "bchpn,bchpn->bhc", dS, prev)
+    da = _reverse_cumsum(dcs).permute(0, 2, 3, 1).reshape(b, nc * L, h)
+
+    # 4) dB and dC over the heads
+    dB = dB_h.sum(dim=3).reshape(b, nc * L, n)
+    dC = dC_h.sum(dim=3).reshape(b, nc * L, n)
+    return (dx.reshape(b, nc * L, h, p)[:, :l], da[:, :l], dB[:, :l],
+            dC[:, :l], dinit)
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernel
 # ----------------------------------------------------------------------
@@ -222,30 +335,38 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
-                  C: torch.Tensor, init_state: torch.Tensor | None = None,
-                  chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernels on the current stream; never synchronises.
-    One call counts as one launch (it starts three CUDA kernels, two
-    for a single chunk).
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.library("ssd_scan_bwd")
+    fn = lib.repro_ssd_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
 
-    x: (b, l, h, p); a: (b, l, h); B/C: (b, l, n); init_state (b, h, p, n)
-    or None for zeros; all f32 -> y (b, l, h, p), final state (b, h, p, n).
-    """
-    check_ssd_args(x, a, B, C, init_state, chunk)
+
+def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor | None) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan_cuda needs CUDA tensors, got "
+        raise ValueError(f"the SSD scan kernels need CUDA tensors, got "
                          f"{x.device}")
-    tensors = (x, B, C) if init_state is None else (x, B, C, init_state)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("SSD scan x, B, C and init_state must be 16-byte "
-                         "aligned (the kernel copies 16 bytes at a time)")
+    if any(t is not None and t.data_ptr() % 16 for t in (x,) + tensors):
+        raise ValueError("SSD scan x, B, C, the states and dy must be "
+                         "16-byte aligned (the kernels copy 16 bytes at a "
+                         "time)")
+
+
+def _forward(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+             C: torch.Tensor, init_state: torch.Tensor | None,
+             y: torch.Tensor | None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run ``csrc/ssd_scan.cu`` on the current stream: all three passes
+    into ``y``, or, with ``y`` None, the first two alone.  Returns the final
+    state (b, h, p, n), the state before each chunk as S^T (b, chunks, h,
+    n, p) and each chunk's cumulative log-decay (b, chunks, h, 128), the
+    last two views of the scratch."""
     b, l, h, p = x.shape
     n = B.shape[-1]
-    y = torch.empty_like(x)
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    if final.numel() == 0:
-        return y, final
     index = x.device.index
     plan = ssd_plan(b, l, h, p, _sm_count(index))
     chunks = -(-l // CHUNK)
@@ -263,14 +384,106 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
         fn = _library().repro_ssd_scan
         status = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(),
                     None if init_state is None else init_state.data_ptr(),
-                    y.data_ptr(), final.data_ptr(), states, cs, cb, b, l, h,
-                    p, n, plan.heads, plan.split,
+                    None if y is None else y.data_ptr(), final.data_ptr(),
+                    states, cs, cb, b, l, h, p, n, plan.heads, plan.split,
                     build.current_stream(index))
     if status != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error "
                            f"{status}")
+    return (final, scratch[:sizes[0]].view(b, chunks, h, n, p),
+            scratch[sizes[0]:sizes[0] + sizes[1]].view(b, chunks, h, CHUNK))
+
+
+def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor, init_state: torch.Tensor | None = None,
+                  chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernels on the current stream; never synchronises.
+    One call counts as one launch (it starts three CUDA kernels, two
+    for a single chunk).
+
+    x: (b, l, h, p); a: (b, l, h); B/C: (b, l, n); init_state (b, h, p, n)
+    or None for zeros; all f32 -> y (b, l, h, p), final state (b, h, p, n).
+    """
+    check_ssd_args(x, a, B, C, init_state, chunk)
+    _check_cuda(x, B, C, init_state)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    y = torch.empty_like(x)
+    if b * h * p * n == 0:
+        return y, torch.empty((b, h, p, n), dtype=torch.float32,
+                              device=x.device)
+    final, _, _ = _forward(x, a, B, C, init_state, y)
     ssd_scan_cuda.launches += 1
     return y, final
 
 
 ssd_scan_cuda.launches = 0
+
+
+def check_ssd_bwd_args(x: torch.Tensor, dy: torch.Tensor,
+                       dfinal: torch.Tensor | None) -> None:
+    """Raise on a dy or dfinal the backward does not take (the forward's
+    inputs are checked by ``check_ssd_args``)."""
+    b, l, h, p = x.shape
+    if tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"dy {tuple(dy.shape)}, need {tuple(x.shape)}")
+    grads = [dy] + ([dfinal] if dfinal is not None else [])
+    if dfinal is not None and (dfinal.dim() != 4
+                               or tuple(dfinal.shape[:3]) != (b, h, p)):
+        raise ValueError(f"dfinal {tuple(dfinal.shape)}, need (b, h, p, n) "
+                         f"with (b, h, p) = {(b, h, p)}")
+    if any(t.dtype != torch.float32 or t.device != x.device
+           or not t.is_contiguous() for t in grads):
+        raise ValueError("dy and dfinal must be contiguous float32 on the "
+                         "inputs' device")
+
+
+def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, init_state: torch.Tensor | None,
+                      dy: torch.Tensor, dfinal: torch.Tensor | None,
+                      chunk: int = CHUNK):
+    """Gradients of ``ssd_scan_cuda``'s (y, final) on the current stream;
+    never synchronises.  One call counts as one launch: the forward's two
+    first passes, then the four of ``csrc/ssd_scan_bwd.cu`` (each chunk's
+    own state gradient, the recurrence across chunks in reverse, each
+    chunk and head, the sum over heads of dB and dC).  Arguments and
+    results are ``ssd_scan_bwd_plain``'s."""
+    check_ssd_args(x, a, B, C, init_state, chunk)
+    check_ssd_bwd_args(x, dy, dfinal)
+    _check_cuda(x, B, C, init_state, dy, dfinal)
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    dinit = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    if l == 0 or b * h * p * n == 0:
+        dinit = (dfinal.clone() if dfinal is not None
+                 else torch.zeros_like(dinit))
+        return (dx, da, dB.zero_(), dC.zero_(),
+                dinit if init_state is not None else None)
+    _, prev, cs = _forward(x, a, B, C, init_state, None)
+    chunks = prev.shape[1]
+    # scratch: each chunk's state gradient (S^T layout), then the per-head
+    # dB and dC before their sum over heads
+    sizes = (b * chunks * h * n * p, b * l * h * n, b * l * h * n)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    gs = scratch.data_ptr()
+    dbh = gs + 4 * sizes[0]
+    dch = dbh + 4 * sizes[1]
+    index = x.device.index
+    with torch.cuda._DeviceGuard(index):
+        fn = _bwd_library().repro_ssd_scan_bwd
+        status = fn(x.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+                    None if dfinal is None else dfinal.data_ptr(),
+                    prev.data_ptr(), cs.data_ptr(), dx.data_ptr(),
+                    da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+                    dinit.data_ptr(), gs, dbh, dch, b, l, h, p, n,
+                    build.current_stream(index))
+    if status != 0:
+        raise RuntimeError(f"SSD scan backward kernel launch failed: CUDA "
+                           f"error {status}")
+    ssd_scan_bwd_cuda.launches += 1
+    return dx, da, dB, dC, dinit if init_state is not None else None
+
+
+ssd_scan_bwd_cuda.launches = 0

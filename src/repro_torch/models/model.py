@@ -1,7 +1,9 @@
-"""Model facade for serving: build_model(cfg, device, seed) -> Model with
-init_cache / prefill / decode_step, for every family of the registry:
-dense, MoE and VLM (``Decoder``), the zamba2 hybrid (``Hybrid``), the
-seamless encoder-decoder (``EncDec``) and xLSTM (``XLSTM``).
+"""Model facade: build_model(cfg, device, seed) -> Model with forward /
+loss (training) and init_cache / prefill / decode_step (serving), for every
+family of the registry: dense, MoE and VLM (``Decoder``), the zamba2 hybrid
+(``Hybrid``), the seamless encoder-decoder (``EncDec``) and xLSTM
+(``XLSTM``).  Serving records no gradient: ``prefill`` and ``decode_step``
+run under ``torch.no_grad()``, whatever the parameters' ``requires_grad``.
 
 The JAX package's ``Model`` serves one sequence per call and the engine
 vmaps it over slots.  Here the batch dimension is written out: the cache
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -65,6 +68,58 @@ class Model:
     cfg: ModelConfig
     decoder: Decoder | Hybrid | EncDec | XLSTM
     device: torch.device
+
+    # ------------------------------------------------------------------
+    # forward / loss
+    # ------------------------------------------------------------------
+
+    def input_tensor(self, x) -> torch.Tensor:
+        """A batch entry (numpy array or tensor) on this model's device."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x))
+        return x.to(self.device)
+
+    def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence logits for training: batch {"tokens": (B, S) int,
+        "labels", and "frontend" (B, F, d): an encoder-decoder's frame
+        embeddings, or the patch embeddings put in front of a decoder's
+        tokens, whose logits are then cut off}.  Returns (logits (B, S, V)
+        in the model dtype, aux_loss f32 scalar)."""
+        cfg = self.cfg
+        net = self.decoder
+        tokens = self.input_tensor(batch["tokens"])
+        if cfg.family == "encdec":
+            enc_out = net.encode(self.input_tensor(batch["frontend"]))
+            logits, aux, _ = net(tokens, enc_out)
+        elif cfg.family in ("hybrid", "ssm"):
+            logits, aux, _ = net(tokens)
+        else:
+            prefix = batch.get("frontend")
+            if prefix is not None:
+                prefix = self.input_tensor(prefix)
+            logits, aux, _ = net(tokens, prefix_embeds=prefix)
+            if prefix is not None:
+                logits = logits[:, prefix.shape[1]:]
+        return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                       device=self.device)
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy over the f32 logits, labels < 0
+        masked out and the sum divided by max(#valid, 1), plus the aux
+        loss: the JAX package's ``Model.loss``."""
+        logits, aux = self.forward(batch)
+        labels = self.input_tensor(batch["labels"]).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        valid = labels >= 0
+        safe = torch.where(valid, labels, 0)
+        tok_lp = logp.gather(-1, safe[..., None])[..., 0]
+        n = valid.sum().clamp(min=1)
+        ce = -torch.where(valid, tok_lp, 0.0).sum() / n
+        return ce + aux
+
+    # ------------------------------------------------------------------
+    # serving: cache + prefill + decode
+    # ------------------------------------------------------------------
 
     def init_cache(self, batch: int, max_seq: int, page_size: int = 16,
                    src_len: int = 0) -> dict:
@@ -121,6 +176,7 @@ class Model:
                                            dtype=dtype_of(cfg), device=dev)
         return cache
 
+    @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict,
                 frontend: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, dict]:
@@ -138,29 +194,31 @@ class Model:
                 raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
                                  "needs the frontend's frame embeddings")
             enc_out = self.decoder.encode(frontend)
-            logits, new_cache = self.decoder(tokens, enc_out, cache=cache,
-                                             last_only=True, fresh=fresh)
+            logits, _, new_cache = self.decoder(
+                tokens, enc_out, cache=cache, last_only=True, fresh=fresh)
             new_cache["enc_out"] = enc_out
         elif cfg.family == "vlm":
-            logits, new_cache = self.decoder(tokens, cache=cache,
-                                             last_only=True, fresh=fresh,
-                                             prefix_embeds=frontend)
+            logits, _, new_cache = self.decoder(
+                tokens, cache=cache, last_only=True, fresh=fresh,
+                prefix_embeds=frontend)
         else:
-            logits, new_cache = self.decoder(tokens, cache=cache,
-                                             last_only=True, fresh=fresh)
+            logits, _, new_cache = self.decoder(
+                tokens, cache=cache, last_only=True, fresh=fresh)
         return logits[:, -1:], new_cache
 
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict
                     ) -> tuple[torch.Tensor, dict]:
         """One decode step: tokens (B, 1) -> logits (B, 1, V), new cache.
         An encoder-decoder cache without ``enc_out`` is prefilled, as the
         JAX package's ``Model.decode_step`` does."""
         if self.cfg.family != "encdec":
-            return self.decoder(tokens, cache=cache)
+            logits, _, new_cache = self.decoder(tokens, cache=cache)
+            return logits, new_cache
         if "enc_out" not in cache:
             return self.prefill(tokens, cache)
-        logits, new_cache = self.decoder(tokens, cache["enc_out"],
-                                         cache=cache)
+        logits, _, new_cache = self.decoder(tokens, cache["enc_out"],
+                                            cache=cache)
         new_cache["enc_out"] = cache["enc_out"]
         return logits, new_cache
 

@@ -13,7 +13,12 @@ of one step), ``DecoderLayer.forward`` (``_dense_layer_fwd``),
 ``XLSTM.forward`` (``xlstm_fwd``).  Layers are ``ModuleList``s walked by
 Python loops in place of ``lax.scan``; the parameters of layer ``l`` are
 slice ``l`` of the JAX package's layer-stacked leaves (``[i][j]`` for the
-hybrid's super-blocks).
+hybrid's super-blocks).  Every stack's ``forward`` returns ``(logits,
+aux_loss, new_cache)`` as the reference's ``*_fwd`` do: the MoE layers'
+summed aux and z losses (the float 0.0 for a stack without them).  Without
+a cache, while a gradient is recorded and ``cfg.remat`` is set, each layer
+(the hybrid's Mamba2 layers, each xLSTM pair) is recomputed in the backward
+(``remat``, the reference's ``_maybe_remat``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Attention, RMSNorm, dtype_of, weight
@@ -59,6 +65,14 @@ def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
     return ring, new_kpos
 
 
+def remat(cfg: ModelConfig, layer: nn.Module, *args):
+    """``layer(*args)``, its activations recomputed in the backward when
+    ``cfg.remat`` asks for it and a gradient is being recorded."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
 class DecoderLayer(nn.Module):
     """Pre-norm attention and SwiGLU MLP, or, for an MoE config, the
     ``MoE`` layer (``moe``) in place of the MLP."""
@@ -76,18 +90,20 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv_cache: dict | None = None) -> torch.Tensor:
-        """With a cache every row forms its own MoE groups, as the JAX
-        package's engine decodes (one sequence per call, mapped over the
-        slots); without one the rows' tokens are grouped together, as its
-        ``decoder_fwd`` does (the aux loss is not returned: the port does
-        not train)."""
+                kv_cache: dict | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor | float]:
+        """Returns (x, aux): the MoE layer's aux and z losses (f32 scalar),
+        or 0.0.  With a cache every row forms its own MoE groups, as the
+        JAX package's engine decodes (one sequence per call, mapped over
+        the slots); without one the rows' tokens are grouped together, as
+        its ``decoder_fwd`` does."""
         x = x + self.attn(self.ln1(x), positions, kv_cache)
         h = self.ln2(x)
         if not self.cfg.is_moe:
-            return x + self.mlp(h)
+            return x + self.mlp(h), 0.0
         moe = moe_fwd if kv_cache is None else moe_per_row
-        return x + moe(self.moe, self.cfg, h)[0]
+        out, aux = moe(self.moe, self.cfg, h)
+        return x + out, aux
 
 
 class Decoder(nn.Module):
@@ -112,8 +128,8 @@ class Decoder(nn.Module):
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 last_only: bool = False, fresh: bool = False,
                 prefix_embeds: torch.Tensor | None = None
-                ) -> tuple[torch.Tensor, dict | None]:
-        """Returns (logits, new_cache).
+                ) -> tuple[torch.Tensor, torch.Tensor | float, dict | None]:
+        """Returns (logits, aux_loss, new_cache).
 
         tokens: (B, S) int.  cache: {"k"/"v": (L,B,kv_len,Hkv,hd), "kpos":
         (B,kv_len), "pos": (B,), "page_size": int} for serving; its k/v are
@@ -126,10 +142,12 @@ class Decoder(nn.Module):
         x = self.embed[tokens.long()]
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        aux = 0.0
         if cache is None:
             positions = torch.arange(x.shape[1], device=x.device)
             for layer in self.layers:
-                x = layer(x, positions)
+                x, a = remat(cfg, layer, x, positions)
+                aux = aux + a
             new_cache = None
         else:
             pos = cache["pos"]
@@ -138,7 +156,8 @@ class Decoder(nn.Module):
                                        cache["kpos"], fresh, page)
             for l, layer in enumerate(self.layers):
                 kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
-                x = layer(x, ring["q_pos"], kv)
+                x, a = layer(x, ring["q_pos"], kv)
+                aux = aux + a
             # advance by the full written slab
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "pos": pos + x.shape[1], "kpos": new_kpos,
@@ -147,7 +166,7 @@ class Decoder(nn.Module):
             x = x[:, -1:]      # serving prefill: head for last token only
         x = self.ln_f(x)
         head = self.embed.t() if self.lm_head is None else self.lm_head
-        return x @ head.to(x.dtype), new_cache
+        return x @ head.to(x.dtype), aux, new_cache
 
 
 class Hybrid(nn.Module):
@@ -177,8 +196,8 @@ class Hybrid(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 last_only: bool = False, fresh: bool = False
-                ) -> tuple[torch.Tensor, dict | None]:
-        """Returns (logits, new_cache).
+                ) -> tuple[torch.Tensor, float, dict | None]:
+        """Returns (logits, 0.0, new_cache).
 
         cache: {"ssm": (n_super, attn_every, B, H, P, N) f32, "ssm_tail":
         (n_tail, B, H, P, N) f32 (with a tail), "k"/"v": (n_super, B,
@@ -194,10 +213,10 @@ class Hybrid(nn.Module):
             positions = torch.arange(x.shape[1], device=x.device)
             for block in self.blocks:
                 for layer in block:
-                    x = layer(x)
-                x = self.shared(x, positions)
+                    x = remat(cfg, layer, x)
+                x, _ = self.shared(x, positions)
             for layer in self.tail:
-                x = layer(x)
+                x = remat(cfg, layer, x)
             new_cache = None
         else:
             pos = cache["pos"]
@@ -208,14 +227,14 @@ class Hybrid(nn.Module):
                 for j, layer in enumerate(block):
                     x = layer(x, cache["ssm"][i, j])
                 kv = {"k": cache["k"][i], "v": cache["v"][i], **ring}
-                x = self.shared(x, ring["q_pos"], kv)
+                x, _ = self.shared(x, ring["q_pos"], kv)
             for j, layer in enumerate(self.tail):
                 x = layer(x, cache["ssm_tail"][j])
             new_cache = dict(cache, pos=pos + x.shape[1], kpos=new_kpos)
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
         x = self.ln_f(x)
-        return x @ self.lm_head, new_cache
+        return x @ self.lm_head, 0.0, new_cache
 
 
 class EncoderLayer(nn.Module):
@@ -284,19 +303,20 @@ class EncDec(nn.Module):
         x = src_embeds.to(self.embed.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         for layer in self.encoder:
-            x = layer(x, positions)
+            x = remat(self.cfg, layer, x, positions)
         return self.ln_enc(x)
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 cache: dict | None = None, last_only: bool = False,
-                fresh: bool = False) -> tuple[torch.Tensor, dict | None]:
-        """Returns (logits, new_cache); the cache is the decoder's, as
+                fresh: bool = False
+                ) -> tuple[torch.Tensor, float, dict | None]:
+        """Returns (logits, 0.0, new_cache); the cache is the decoder's, as
         ``Decoder.forward``'s (the caller keeps ``enc_out`` beside it)."""
         x = self.embed[tokens.long()]
         if cache is None:
             positions = torch.arange(x.shape[1], device=x.device)
             for layer in self.decoder:
-                x = layer(x, enc_out, positions)
+                x = remat(self.cfg, layer, x, enc_out, positions)
             new_cache = None
         else:
             pos = cache["pos"]
@@ -311,7 +331,7 @@ class EncDec(nn.Module):
                          "page_size": cache["page_size"]}
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
-        return self.ln_f(x) @ self.lm_head, new_cache
+        return self.ln_f(x) @ self.lm_head, 0.0, new_cache
 
 
 class XLSTM(nn.Module):
@@ -333,8 +353,8 @@ class XLSTM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 last_only: bool = False, fresh: bool = False
-                ) -> tuple[torch.Tensor, dict | None]:
-        """Returns (logits, new_cache).  cache: {"mlstm_C" (P, B, h, dh,
+                ) -> tuple[torch.Tensor, float, dict | None]:
+        """Returns (logits, 0.0, new_cache).  cache: {"mlstm_C" (P, B, h, dh,
         dh), "mlstm_n" (P, B, h, dh), "mlstm_m" (P, B, h), "slstm_c"/"_n"/
         "_h"/"_m" (P, B, d), all f32, "pos" (B,)}, P the pairs; the states
         are written in place and the returned cache shares them.  Every
@@ -342,13 +362,16 @@ class XLSTM(nn.Module):
         nothing."""
         x = self.embed[tokens.long()]
         for i, pair in enumerate(self.pairs):
-            x = pair(x, None if cache is None else
-                     {k: v[i] for k, v in cache.items() if k != "pos"})
+            if cache is None:
+                x = remat(self.cfg, pair, x)
+            else:
+                x = pair(x, {k: v[i] for k, v in cache.items()
+                             if k != "pos"})
         new_cache = None if cache is None else dict(
             cache, pos=cache["pos"] + tokens.shape[1])
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
-        return self.ln_f(x) @ self.lm_head, new_cache
+        return self.ln_f(x) @ self.lm_head, 0.0, new_cache
 
 
 def seeded_init(net: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -363,6 +386,7 @@ def seeded_init(net: nn.Module, generator: torch.Generator) -> nn.Module:
     are drawn in f32 on the CPU from ``generator``, in parameter order, so
     a seed gives the same weights on every device."""
 
+    @torch.no_grad()
     def fill(param: nn.Parameter, std: float) -> None:
         w = torch.randn(param.shape, generator=generator,
                         dtype=torch.float32) * std

@@ -189,7 +189,7 @@ def test_no_cache_forward_matches_jax(hybrid):
         0, jcfg.vocab, (2, 24)).astype(np.int32)
     want, _ = jax.jit(lambda p, t: jm.forward(p, {"tokens": t}))(
         params, jnp.asarray(toks))
-    got, cache = tm.decoder(torch.from_numpy(toks))
+    got, _, cache = tm.decoder(torch.from_numpy(toks))
     assert cache is None
     _close(got, want, MODEL_TOL)
 
@@ -299,12 +299,12 @@ def _port_layers_agree(tm, rec, cache, tokens):
         x_in = torch.from_numpy(np.array(x_in))
         if kind == "shared":
             if cache is None:
-                got = net.shared(x_in, torch.arange(s))
+                got, _ = net.shared(x_in, torch.arange(s))
             else:
                 kv = {"k": torch.from_numpy(np.array(cache["k"][idx])),
                       "v": torch.from_numpy(np.array(cache["v"][idx])),
                       **ring}
-                got = net.shared(x_in, ring["q_pos"], kv)
+                got, _ = net.shared(x_in, ring["q_pos"], kv)
                 _close(kv["k"], written["k"])
                 _close(kv["v"], written["v"])
         else:

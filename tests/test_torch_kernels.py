@@ -218,4 +218,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                              torch.zeros(1, 1, dtype=torch.int32),
                              torch.ones(1, dtype=torch.int32))
     assert ops.launch_counts() == {"flash_attention": 0,
-                                   "paged_attention": 0, "ssd_scan": 0}
+                                   "paged_attention": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}

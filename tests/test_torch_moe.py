@@ -200,7 +200,7 @@ def test_no_cache_forward_groups_rows_together():
     toks = np.random.default_rng(3).integers(0, jcfg.vocab, (2, 24)) \
         .astype(np.int32)
     want, _ = jax.jit(jm.forward)(params, {"tokens": jnp.asarray(toks)})
-    got, _ = tm.decoder(torch.from_numpy(toks))
+    got, _, _ = tm.decoder(torch.from_numpy(toks))
     _close(got, want, MODEL_TOL)
 
 
