@@ -15,9 +15,10 @@ Phases, each printing one JSON line:
            3b's; flash also bidirectional at seamless-m4t-large-v2's encoder
            and cross-attention shapes) and at edge cases; kernel, plain and
            library times with CUDA events, each two ways (see Timer); the
-           SSD backward at zamba2-7b's shape against its plain version and
-           autograd of the plain forward; flash and paged refusing a
-           gradient on the card
+           SSD backward at zamba2-7b's shape, from the forward's kept
+           scratch and recomputing it, against its plain version and
+           autograd of the plain forward, with the CUDA kernels one call
+           starts; flash and paged refusing a gradient on the card
   path     at full width, f32, the same seeded weights on the CPU (plain
            versions) and on the card (kernels), a 200-token prompt and 8
            teacher-forced decode steps: qwen3-0.6b with 2 layers,
@@ -29,8 +30,10 @@ Phases, each printing one JSON line:
   train    the loss and every gradient at full width, f32, the same
            seeded weights on the CPU and on the card, 256 tokens:
            qwen3-0.6b (2 layers), zamba2-7b (7: the SSD forward and
-           backward kernels), qwen2-moe-a2.7b (2), xlstm-125m (one pair);
-           the MoE experts' backward in bf16 against f32; then full-size
+           backward kernels), qwen2-moe-a2.7b (2), xlstm-125m (one pair),
+           seamless-m4t-large-v2 (2 + 2 over 200 seeded frames, attending
+           through sdpa: no flash launch under grad); the MoE experts'
+           backward in bf16 against f32; then full-size
            qwen3-0.6b (bf16, remat) through repro_torch.launch.train's set-
            up: 12 steps of 8 x 512 tokens in 2 microbatches, a crash at step
            6, a restore from its checkpoint, the run finished, three steps
@@ -84,7 +87,7 @@ SRC = ROOT / "src"
 
 # H100 SXM published peaks (dense): the bound of each kernel
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 SSD_TOL = 2e-4      # the JAX package's own SSD scan tolerance
 # the SSD backward: each gradient to this fraction of its largest magnitude;
@@ -377,41 +380,79 @@ def ssd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, time_it):
     return row
 
 
-def ssd_bwd_work(b, l, h, p, n, init: bool, dfinal: bool
-                 ) -> tuple[float, float]:
-    """FLOP and bytes the SSD scan's gradients need on these shapes: C B^T
-    once per batch and chunk; per head and chunk the lower triangles of
-    dy x^T, G^T dy, ds B and ds^T C, and five (chunk x p x n) products (the
-    chunk's own state, which the state before the next chunk needs, loc,
-    dy prev, x dS and B dS^T); every input (x, a, B, C, dy and the states)
-    read once and every gradient written once.  f32 peak, as the forward."""
+def ssd_bwd_work(b, l, h, p, n, init: bool, dfinal: bool,
+                 saved: bool = False) -> tuple[float, float]:
+    """FLOP and bytes the SSD scan's gradients need on these shapes.  The
+    whole function (``saved`` False, from x, a, B, C and dy): C B^T once per
+    batch and chunk; per head and chunk the lower triangles of dy x^T, G^T
+    dy, ds B and ds^T C, and five (chunk x p x n) products (the chunk's own
+    state, which the state before the next chunk needs, loc, dy prev, x dS
+    and B dS^T); every input (x, a, B, C, dy and the states) read once and
+    every gradient written once.  From the forward's scratch (``saved``, as
+    training calls it): neither C B^T nor the chunk's own state, and the
+    scratch (states before each chunk, cumulative decays, C B^T) read in
+    place of a."""
     flops = 0.0
     for c0 in range(0, l, 128):
         lc = min(128, l - c0)
         tri = lc * (lc + 1) / 2
-        flops += b * tri * n * 2
-        flops += b * h * (tri * (2 * p + 2 * n) * 2 + 5 * lc * n * p * 2)
-    states = b * h * p * n * ((2 if init else 0) + (1 if dfinal else 0))
-    nbytes = 4.0 * (3 * b * l * h * p + 2 * b * l * h + 4 * b * l * n
-                    + states)
+        flops += 0 if saved else b * tri * n * 2
+        flops += b * h * (tri * (2 * p + 2 * n) * 2
+                          + (4 if saved else 5) * lc * n * p * 2)
+    # dinit written, dfinal read, and without the scratch init read
+    states = b * h * p * n * ((1 if init else 0) + (1 if dfinal else 0))
+    nbytes = 4.0 * (3 * b * l * h * p + b * l * h + 4 * b * l * n + states)
+    if saved:
+        chunks = -(-l // 128)
+        nbytes += 4.0 * chunks * b * (h * p * n + h * 128 + 36 * 256)
+    else:
+        nbytes += 4.0 * (b * l * h + (b * h * p * n if init else 0))
     return flops, nbytes
+
+
+def bwd_kernels_per_call(torch, fn, n: int = 5) -> dict:
+    """The CUDA kernels one call of ``fn`` starts, by name: launches and
+    device ms a call, from ``torch.profiler``'s trace of ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, dict] = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and "ssd_" in e.key:
+            name = re.search(r"ssd_\w+", e.key).group()
+            k = out.setdefault(name, {"launches": 0.0, "device_ms": 0.0})
+            k["launches"] += e.count / n
+            k["device_ms"] += getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0.0)) / n / 1e3
+    return out
 
 
 def ssd_bwd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, dfinal,
                  time_it):
     """``ssd_inputs`` with dy N(0, 1) and, with ``dfinal``, the final
-    state's gradient N(0, 1): the CUDA backward against
-    ``ssd_scan_bwd_plain`` and against autograd of ``ssd_scan_plain``, both
-    on the card, each gradient to SSD_BWD_TOL of its largest (da to
-    SSD_BWD_DA_TOL)."""
-    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+    state's gradient N(0, 1): the CUDA backward from the CUDA forward's
+    scratch (as training calls it) against ``ssd_scan_bwd_plain`` and
+    against autograd of ``ssd_scan_plain``, both on the card, each gradient
+    to SSD_BWD_TOL of its largest (da to SSD_BWD_DA_TOL); the same backward
+    recomputing the scratch must give the same gradients bit for bit, and
+    the forward's scratch must hold what the plain version's does (to
+    SSD_TOL of each part's largest)."""
+    from repro_torch.kernels.ssd_scan import (scratch_views, ssd_bwd_plan,
+                                              ssd_scan_bwd_cuda,
                                               ssd_scan_bwd_plain,
-                                              ssd_scan_plain)
+                                              ssd_scan_cuda, ssd_scan_plain,
+                                              ssd_scratch_plain)
     x, a, B, C, s0 = ssd_inputs(torch, gen, b, l, h, p, n, init)
     dy = torch.randn((b, l, h, p), generator=gen, device="cuda")
     df = (torch.randn((b, h, p, n), generator=gen, device="cuda")
           if dfinal else None)
-    got = ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df)
+    _, _, scratch = ssd_scan_cuda(x, a, B, C, s0, keep_scratch=True)
+    got = ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df, scratch=scratch)
+    again = ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df)
     plain = ssd_scan_bwd_plain(x, a, B, C, s0, dy, df)
     ins = [t.clone().requires_grad_() if t is not None else None
            for t in (x, a, B, C, s0)]
@@ -420,8 +461,25 @@ def ssd_bwd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, dfinal,
     auto = torch.autograd.grad(loss, [t for t in ins if t is not None])
     auto = list(auto) + ([None] if s0 is None else [])
     torch.cuda.synchronize()
+    heads = ssd_bwd_plan(b, l, h, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     row = {"b": b, "l": l, "h": h, "p": p, "n": n, "init_state": init,
-           "dfinal": dfinal, "dtype": "float32"}
+           "dfinal": dfinal, "dtype": "float32", "heads_per_cta": heads,
+           "groups": -(-h // heads)}
+    for g1, g2 in zip(got, again):
+        check((g1 is None and g2 is None) or bool(torch.equal(g1, g2)),
+              f"SSD backward at {row}: the forward's scratch and the "
+              "recomputed one give other gradients")
+    scratch_errs = {}
+    for name, part, want in zip(
+            ("prev", "cs", "cb"), scratch_views(scratch, b, l, h, p, n),
+            scratch_views(ssd_scratch_plain(x, a, B, C, s0), b, l, h, p, n)):
+        scale = float(want.abs().max()) or 1.0
+        err = float((part - want).abs().max()) / scale
+        check(err <= SSD_TOL, f"SSD forward scratch {name} at {row} off by "
+              f"{err} of its max from the plain version's")
+        scratch_errs[name] = err
+    row["scratch_rel_err"] = scratch_errs
     errs = {}
     for name, g, want, want2 in zip(("dx", "da", "dB", "dC", "dinit"), got,
                                     plain, auto):
@@ -442,15 +500,33 @@ def ssd_bwd_case(torch, ops, timer, gen, *, b, l, h, p, n, init, dfinal,
     row["errors"] = errs
     row["max_abs_err"] = max(e["max_abs_err"] for e in errs.values())
     if time_it:
-        timer.into(row, "", lambda: ssd_scan_bwd_cuda(x, a, B, C, s0, dy,
-                                                      df))
+        timer.into(row, "", lambda: ssd_scan_bwd_cuda(
+            x, a, B, C, s0, dy, df, scratch=scratch))
         row["host_ms"] = timer.last_host_ms
+        timer.into(row, "recompute_", lambda: ssd_scan_bwd_cuda(
+            x, a, B, C, s0, dy, df))
         timer.into(row, "plain_", lambda: ssd_scan_bwd_plain(
             x, a, B, C, s0, dy, df), iters=3)
         # no single PyTorch call is the scan's backward
         row["library_ms"] = row["library_device_ms"] = None
-        flops, nbytes = ssd_bwd_work(b, l, h, p, n, init, dfinal)
+        row["cuda_kernels_per_call"] = bwd_kernels_per_call(
+            torch, lambda: ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df,
+                                             scratch=scratch))
+        row["cuda_kernels_per_call_recompute"] = bwd_kernels_per_call(
+            torch, lambda: ssd_scan_bwd_cuda(x, a, B, C, s0, dy, df))
+        # the call's own work (from the scratch) at the f32 FMA rate, the
+        # same at the 3xTF32 rate (three TF32 products a product), its
+        # bytes, and the whole function's at the FMA rate
+        flops, nbytes = ssd_bwd_work(b, l, h, p, n, init, dfinal,
+                                     saved=True)
         row["bound_ms"], row["bound_by"] = bound(flops, nbytes, "float32")
+        row["bound_fma_ms"] = flops / PEAK_FLOPS["float32"] * 1e3
+        row["bound_tf32x3_ms"] = 3 * flops / PEAK_FLOPS["tf32"] * 1e3
+        row["bound_bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        whole, _ = ssd_bwd_work(b, l, h, p, n, init, dfinal)
+        row["bound_fma_whole_ms"] = whole / PEAK_FLOPS["float32"] * 1e3
+        row["gflop"] = flops / 1e9
+        row["gflop_whole"] = whole / 1e9
     return row
 
 
@@ -619,10 +695,14 @@ def phase_kernels(torch, ops, timer) -> dict:
                             hq=24, hkv=8, d=128, lengths=llama_lens,
                             permute=False, dtype="bfloat16", time_it=True))
     paged[-1]["model"] = QUICKSTART_ARCH
-    # the SSD backward at zamba2-7b's shape: with an initial state and the
-    # final state's gradient, then without either, as training calls it
-    # (the largest bucket, the main row); ragged; small heads and dims
-    bwd = []
+    # the SSD backward at zamba2-7b's shape: at the train case's 256 steps
+    # (phase_train), then at the largest bucket with an initial state and
+    # the final state's gradient, then without either, as training calls
+    # it (the main row); ragged; small heads and dims
+    bwd = [ssd_bwd_case(torch, ops, timer, gen, b=1, l=256, h=112, p=64,
+                        n=64, init=False, dfinal=False, time_it=True)]
+    bwd[-1]["model"] = "zamba2-7b"
+    bwd[-1]["train_case_shape"] = True
     for init in (True, False):
         bwd.append(ssd_bwd_case(torch, ops, timer, gen, b=1, l=1024, h=112,
                                 p=64, n=64, init=init, dfinal=init,
@@ -801,18 +881,23 @@ def rel_errs(torch, got: dict, want: dict, norm: bool = False
 
 
 def train_case(torch, ops, arch: str, n_layers: int, b: int = 1,
-               s: int = 256) -> dict:
+               s: int = 256, enc_layers: int = 0, frontend: int = 0) -> dict:
     """The same seeded f32 weights on the CPU (plain versions) and on the
     card (kernels), the registry's width and activation checkpointing, one
-    batch of b x s seeded tokens: the loss and every parameter's gradient
-    must agree to TRAIN_TOL of the CPU's (each gradient to that fraction of
-    its largest magnitude), with the card's exact kernel launches.  The
+    batch of b x s seeded tokens (and, for an encoder-decoder, ``frontend``
+    seeded N(0, 1) frames over ``enc_layers`` encoder layers): the loss and
+    every parameter's gradient must agree to TRAIN_TOL of the CPU's (each
+    gradient to that fraction of its largest magnitude), with the card's
+    exact kernel launches (no flash: training attends through sdpa).  The
     hybrid's gradients are held to the plain versions' on the card at
     TRAIN_TOL, and to the CPU's only within HYBRID_TRAIN_TOL (normwise)."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.models.model import Model
-    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers, dtype="float32",
+    cut = {"n_layers": n_layers}
+    if enc_layers:
+        cut["enc_layers"] = enc_layers
+    cfg = dataclasses.replace(ARCHS[arch], **cut, dtype="float32",
                               name=f"{arch}-{n_layers}l-f32")
     cpu = build_model(cfg, device="cpu", seed=1)
     net = type(cpu.decoder)(cfg, torch.device("cuda"))
@@ -824,6 +909,10 @@ def train_case(torch, ops, arch: str, n_layers: int, b: int = 1,
     labels = torch.cat([toks[:, 1:], torch.full((b, 1), -1,
                                                 dtype=torch.int32)], 1)
     batch = {"tokens": toks, "labels": labels}
+    if frontend:
+        batch["frontend"] = torch.randn(
+            (b, frontend, cfg.d_model),
+            generator=torch.Generator().manual_seed(2))
 
     def loss_and_grads(m):
         params = dict(m.decoder.named_parameters())
@@ -863,6 +952,8 @@ def train_case(torch, ops, arch: str, n_layers: int, b: int = 1,
            "loss_err": loss_err, "worst_grad_rel_err": worst[0],
            "worst_grad": worst[1], "params": len(cpu_g),
            "card_s": card_s, "launches": counts}
+    if enc_layers:
+        row.update(enc_layers=enc_layers, frontend=frontend)
     if hybrid:
         with plain_ssd_on_card(ops):
             plain_loss, plain_g = loss_and_grads(models["cuda"])
@@ -1024,7 +1115,7 @@ def train_full(torch, ops) -> dict:
 
 
 def phase_train(torch, ops) -> dict:
-    """The training path: four families at full width with the depth cut,
+    """The training path: five families at full width with the depth cut,
     the card against the CPU; the MoE experts' bf16 backward; full-size
     qwen3-0.6b through the launcher's set-up."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1034,7 +1125,11 @@ def phase_train(torch, ops) -> dict:
              # one-layer tail: the SSD forward and backward kernels
              train_case(torch, ops, "zamba2-7b", 7),
              train_case(torch, ops, "qwen2-moe-a2.7b", 2),
-             train_case(torch, ops, "xlstm-125m", 2)]        # one pair
+             train_case(torch, ops, "xlstm-125m", 2),        # one pair
+             # the encoder's self-attention and the cross-attention
+             # through sdpa, as the path case over 200 seeded frames
+             train_case(torch, ops, "seamless-m4t-large-v2", 2,
+                        enc_layers=2, frontend=200)]
     return {"cases": cases, "moe_bf16": moe_bf16_grads(torch),
             "full": train_full(torch, ops)}
 
@@ -1815,6 +1910,7 @@ def main() -> int:
             "replaces": REPLACES[name], "replaces_fn": REPLACES_FN[name],
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: v for k, v in main_row.items() if k.startswith("bound_")},
             "ms": main_row["ms"], "kernel_ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],

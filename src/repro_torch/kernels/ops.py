@@ -88,30 +88,35 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 class SsdScan(torch.autograd.Function):
     """(y, final) = SSD(x, a, B, C, init_state) with its backward; both
     halves run on the inputs' device (kernels on the card, plain versions
-    on the CPU).  An unused final state passes no gradient (None) to the
-    backward."""
+    on the CPU).  The forward keeps its scratch (the state before each
+    chunk, each chunk's cumulative decay and C B^T) for the backward, which
+    then runs no forward pass; under activation checkpointing the scratch
+    is made again with the layer's recomputed forward.  An unused final
+    state passes no gradient (None) to the backward."""
 
     @staticmethod
     def forward(ctx, x, a, B, C, init_state, chunk):
         fwd = ssd_scan_cuda if x.device.type == "cuda" else ssd_scan_plain
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x, a, B, C, init_state)
+        y, final, scratch = fwd(x, a, B, C, init_state, chunk,
+                                keep_scratch=True)
+        ctx.save_for_backward(x, a, B, C, init_state, scratch)
         ctx.chunk = chunk
-        return fwd(x, a, B, C, init_state, chunk)
+        return y, final
 
     @staticmethod
     def backward(ctx, dy, dfinal):
-        x, a, B, C, init_state = ctx.saved_tensors
+        x, a, B, C, init_state, scratch = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dfinal is not None:
             dfinal = dfinal.contiguous()
         if x.device.type == "cuda":
             grads = ssd_scan_bwd_cuda(x, a, B, C, init_state, dy, dfinal,
-                                      ctx.chunk)
+                                      ctx.chunk, scratch=scratch)
         else:
             check_ssd_bwd_args(x, dy, dfinal)
             grads = ssd_scan_bwd_plain(x, a, B, C, init_state, dy, dfinal,
-                                       ctx.chunk)
+                                       ctx.chunk, scratch=scratch)
         return (*grads, None)
 
 

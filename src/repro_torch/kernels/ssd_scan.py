@@ -11,15 +11,18 @@ shape and the SM count alone.  ``ssd_scan_plain`` is the same function in
 plain PyTorch: the JAX model's chunked form (``ssd_chunked``) with its sum
 order, padding a ragged length to whole chunks as ``mamba2_fwd`` does.
 Both take an initial state and return the final one, which
-prefill-with-state needs.
+prefill-with-state needs; with ``keep_scratch`` both also return the
+forward's scratch (the state before each chunk, each chunk's cumulative
+decay and C B^T, in the kernels' layouts: ``scratch_views``).
 
-``ssd_scan_bwd_cuda`` launches ``csrc/ssd_scan_bwd.cu`` after the forward's
-first two passes (``ssd_scan.cu`` without its output pass), which give it
-each chunk's cumulative decay and the state before each chunk again rather
-than keeping them from the forward.  ``ssd_scan_bwd_plain`` computes the
-same gradients in plain PyTorch, pass by pass as the kernels do.  Callers
-go through ``ops.ssd_scan``, whose ``torch.autograd.Function`` runs the
-forward and the backward of one device.
+``ssd_scan_bwd_cuda`` launches ``csrc/ssd_scan_bwd.cu`` on that scratch,
+kept from the forward, or, given none, after running the forward's first
+two passes again.  ``ssd_bwd_plan`` picks its heads per CTA from the shape
+and the SM count.  ``ssd_scan_bwd_plain`` computes the same gradients in
+plain PyTorch, pass by pass as the kernels do, from the scratch of
+``ssd_scratch_plain`` or recomputing it.  Callers go through
+``ops.ssd_scan``, whose ``torch.autograd.Function`` runs the forward and
+the backward of one device and hands the forward's scratch to the backward.
 """
 
 from __future__ import annotations
@@ -160,18 +163,17 @@ def ssd_chunked(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
 def ssd_scan_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                    C: torch.Tensor, init_state: torch.Tensor | None = None,
-                   chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+                   chunk: int = CHUNK, keep_scratch: bool = False):
     """``ssd_chunked`` on any length: pads to whole chunks with a = 0 and
     x = 0 (the state passes through padded steps unchanged), then cuts y
-    back to l.  Returns y (b, l, h, p) and the final state (b, h, p, n)."""
+    back to l.  Returns y (b, l, h, p) and the final state (b, h, p, n),
+    and with ``keep_scratch`` also ``ssd_scratch_plain``'s scratch."""
     l = x.shape[1]
-    pad = (-l) % chunk
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
-        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
-        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
-        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
-    y, final = ssd_chunked(x, a, B, C, chunk, init_state)
+    xp, ap, Bp, Cp = _pad_chunks(chunk, x, a, B, C)
+    y, final = ssd_chunked(xp, ap, Bp, Cp, chunk, init_state)
+    if keep_scratch:
+        return y[:, :l], final, ssd_scratch_plain(x, a, B, C, init_state,
+                                                  chunk)
     return y[:, :l], final
 
 
@@ -189,20 +191,120 @@ def _reverse_cumsum(x: torch.Tensor) -> torch.Tensor:
     return x.flip(-1).cumsum(-1).flip(-1)
 
 
+# C B^T of a chunk as the kernels keep it: pair (r, q <= r) of thread (ty,
+# tx) of a 16 x 16 layout holds C_i . B_j for i = ty + 16 r, j = tx + 16 q,
+# at (r (r + 1) / 2 + q) * 256 + 16 ty + tx; pairs q > r (j > i) are not kept
+CB_PAIRS = [(r, q) for r in range(8) for q in range(r + 1)]
+
+
+def _pack_cb(cb: torch.Tensor) -> torch.Tensor:
+    """(b, c, 128, 128) -> (b, c, CB_FLOATS) in the kernels' order."""
+    b, c = cb.shape[:2]
+    t = cb.reshape(b, c, 8, 16, 8, 16).permute(0, 1, 2, 4, 3, 5)
+    r, q = (torch.tensor(v, device=cb.device) for v in zip(*CB_PAIRS))
+    return t[:, :, r, q].reshape(b, c, CB_FLOATS)
+
+
+def _unpack_cb(packed: torch.Tensor) -> torch.Tensor:
+    """(b, c, CB_FLOATS) -> (b, c, 128, 128), zero where j // 16 > i // 16
+    (masked by every use: j > i)."""
+    b, c = packed.shape[:2]
+    t = packed.new_zeros((b, c, 8, 8, 16, 16))
+    r, q = (torch.tensor(v, device=packed.device) for v in zip(*CB_PAIRS))
+    t[:, :, r, q] = packed.reshape(b, c, len(CB_PAIRS), 16, 16)
+    return t.permute(0, 1, 2, 4, 3, 5).reshape(b, c, CHUNK, CHUNK)
+
+
+def scratch_sizes(b: int, l: int, h: int, p: int, n: int
+                  ) -> tuple[int, int, int]:
+    """Floats of the forward's scratch parts: the states (b, chunks, h, n,
+    p), the cumulative decays (b, chunks, h, 128), C B^T (b, chunks,
+    CB_FLOATS); each a multiple of 16 bytes."""
+    chunks = -(-l // CHUNK)
+    return (b * chunks * h * n * p, b * chunks * h * CHUNK,
+            b * chunks * CB_FLOATS)
+
+
+def scratch_views(scratch: torch.Tensor, b: int, l: int, h: int, p: int,
+                  n: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward's scratch as (prev, cs, cb): the state before each chunk
+    as S^T (b, chunks, h, n, p), each chunk's cumulative log-decay (b,
+    chunks, h, 128) and each chunk's C B^T (b, chunks, CB_FLOATS)."""
+    sizes = scratch_sizes(b, l, h, p, n)
+    if (scratch.dim() != 1 or scratch.numel() != sum(sizes)
+            or scratch.dtype != torch.float32):
+        raise ValueError(f"SSD scratch {tuple(scratch.shape)} "
+                         f"{scratch.dtype}, need ({sum(sizes)},) float32 "
+                         f"for {(b, l, h, p, n)}")
+    chunks = -(-l // CHUNK)
+    prev, cs, cb = scratch.split(sizes)
+    return (prev.view(b, chunks, h, n, p), cs.view(b, chunks, h, CHUNK),
+            cb.view(b, chunks, CB_FLOATS))
+
+
+def _chunked(chunk: int, x, a, B, C, *more):
+    """Padded to whole chunks and cut into them: x and the ``more`` (b, c,
+    L, h, p), a (b, h, c, L), B and C (b, c, L, n)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    xp, ap, Bp, Cp, *mp = _pad_chunks(chunk, x, a, B, C, *more)
+    nc = xp.shape[1] // chunk
+    return ([xp.reshape(b, nc, chunk, h, p),
+             ap.reshape(b, nc, chunk, h).permute(0, 3, 1, 2),
+             Bp.reshape(b, nc, chunk, n), Cp.reshape(b, nc, chunk, n)]
+            + [t.reshape(b, nc, chunk, h, p) for t in mp])
+
+
+def _states_before(xc: torch.Tensor, Bc: torch.Tensor, cs: torch.Tensor,
+                   init_state: torch.Tensor | None) -> torch.Tensor:
+    """The state before each chunk (b, c, h, p, n), from each chunk's own
+    state x^T (B w), w = exp(total - cs), carried across the chunks."""
+    b, nc, _, h, p = xc.shape
+    n = Bc.shape[-1]
+    total = cs[..., -1]                                          # (b,h,c)
+    w = torch.exp(total[..., None] - cs)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, w, xc)
+    carry = (init_state if init_state is not None
+             else xc.new_zeros((b, h, p, n)))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * torch.exp(total[:, :, c, None, None]) + states[:, c]
+    return torch.stack(prev, dim=1)
+
+
+def ssd_scratch_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+                      C: torch.Tensor, init_state: torch.Tensor | None = None,
+                      chunk: int = CHUNK) -> torch.Tensor:
+    """The forward's scratch that the backward reads, in the kernels'
+    layout (``scratch_views``), computed as ``ssd_scan_bwd_plain`` computes
+    it when it is given none."""
+    xc, ac, Bc, Cc = _chunked(chunk, x, a, B, C)
+    cs = _cumsum(ac)                                             # (b,h,c,L)
+    prev = _states_before(xc, Bc, cs, init_state)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    return torch.cat([prev.transpose(-1, -2).reshape(-1),
+                      cs.permute(0, 2, 1, 3).reshape(-1),
+                      _pack_cb(cb).reshape(-1)])
+
+
 def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                        C: torch.Tensor, init_state: torch.Tensor | None,
                        dy: torch.Tensor, dfinal: torch.Tensor | None,
-                       chunk: int = CHUNK):
+                       chunk: int = CHUNK,
+                       scratch: torch.Tensor | None = None):
     """Gradients of ``ssd_scan_plain``'s (y, final) with respect to (x, a,
     B, C, init_state), given dy (b, l, h, p) and dfinal (b, h, p, n) or
-    None (the final state unused).  Returns (dx, da, dB, dC, dinit); dinit
-    is None without an initial state.
+    None (the final state unused), and the forward's scratch or None (then
+    it is computed again).  Returns (dx, da, dB, dC, dinit); dinit is None
+    without an initial state.
 
-    The passes of ``csrc/ssd_scan_bwd.cu``, each over every chunk and head
-    at once, with cs the chunk's cumulative log-decay, w = exp(total - cs),
-    prev_c the state before chunk c and G[i, j] = (C_i . B_j) exp(cs_i -
-    cs_j) for j <= i:
-      0. the forward's cs and prev, again;
+    The steps of ``csrc/ssd_scan_bwd.cu`` (its first kernel takes steps 1
+    and 2, its second step 3, its third step 4), each here over every chunk
+    and head at once, with cs the chunk's cumulative log-decay, w =
+    exp(total - cs), prev_c the state before chunk c and G[i, j] = (C_i .
+    B_j) exp(cs_i - cs_j) for j <= i:
+      0. the forward's cs, prev and C B^T: its scratch, or again;
       1. each chunk's own gradient of the state before it, from its
          outputs: loc_c = (dy exp(cs))^T C;
       2. the recurrence across chunks in reverse: dS_c (the gradient of
@@ -216,27 +318,23 @@ def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     b, l, h, p = x.shape
     n = B.shape[-1]
     L = chunk
-    xp, ap, Bp, Cp, dyp = _pad_chunks(L, x, a, B, C, dy)
-    nc = xp.shape[1] // L
-    xc = xp.reshape(b, nc, L, h, p)
-    dyc = dyp.reshape(b, nc, L, h, p)
-    Bc = Bp.reshape(b, nc, L, n)
-    Cc = Cp.reshape(b, nc, L, n)
-    ac = ap.reshape(b, nc, L, h).permute(0, 3, 1, 2)            # (b,h,c,L)
+    xc, ac, Bc, Cc, dyc = _chunked(L, x, a, B, C, dy)
+    nc = xc.shape[1]
 
-    # 0) the forward's cumulative decay and the state before each chunk
-    cs = _cumsum(ac)                                             # (b,h,c,L)
+    # 0) the forward's cumulative decay, the state before each chunk and
+    #    C B^T
+    if scratch is None:
+        cs = _cumsum(ac)                                         # (b,h,c,L)
+        prev = _states_before(xc, Bc, cs, init_state)            # (b,c,h,p,n)
+        cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    else:
+        prev_t, cs, cb = scratch_views(scratch, b, l, h, p, n)
+        prev = prev_t.transpose(-1, -2)
+        cs = cs.permute(0, 2, 1, 3)
+        cb = _unpack_cb(cb)
     total = cs[..., -1]                                          # (b,h,c)
     w = torch.exp(total[..., None] - cs)
     ecs = torch.exp(cs)
-    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, w, xc)
-    carry = (init_state if init_state is not None
-             else x.new_zeros((b, h, p, n)))
-    prev = []
-    for c in range(nc):
-        prev.append(carry)
-        carry = carry * torch.exp(total[:, :, c, None, None]) + states[:, c]
-    prev = torch.stack(prev, dim=1)                              # (b,c,h,p,n)
 
     # 1) each chunk's own gradient of the state before it
     loc = torch.einsum("bclhp,bhcl,bcln->bchpn", dyc, ecs, Cc)
@@ -253,7 +351,7 @@ def ssd_scan_bwd_plain(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
     seg = (cs[..., :, None] - cs[..., None, :]).masked_fill(~tri, -torch.inf)
     E = torch.exp(seg)                                           # (b,h,c,L,L)
-    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[:, None]        # (b,1,c,L,L)
+    cb = cb[:, None]                                             # (b,1,c,L,L)
     G = cb * E
     dscore = torch.einsum("bcihp,bcjhp->bhcij", dyc, xc) * E
     M = dscore * cb                         # dG * G: d(cs_i - cs_j) terms
@@ -339,7 +437,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.library("ssd_scan_bwd")
     fn = lib.repro_ssd_scan_bwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -357,24 +455,20 @@ def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor | None) -> None:
 
 def _forward(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, init_state: torch.Tensor | None,
-             y: torch.Tensor | None
-             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+             y: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
     """Run ``csrc/ssd_scan.cu`` on the current stream: all three passes
     into ``y``, or, with ``y`` None, the first two alone.  Returns the final
-    state (b, h, p, n), the state before each chunk as S^T (b, chunks, h,
-    n, p) and each chunk's cumulative log-decay (b, chunks, h, 128), the
-    last two views of the scratch."""
+    state (b, h, p, n) and the scratch (``scratch_views``): after the
+    passes, the state before each chunk, each chunk's cumulative log-decay
+    and its C B^T."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     final = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     index = x.device.index
     plan = ssd_plan(b, l, h, p, _sm_count(index))
-    chunks = -(-l // CHUNK)
-    # scratch, one allocation: each chunk's state as S^T (then the state
-    # before it), each chunk's cumulative log-decay, each chunk's C B^T;
-    # every part a multiple of 16 bytes
-    sizes = (b * chunks * h * n * p, b * chunks * h * CHUNK,
-             b * chunks * CB_FLOATS)
+    # one allocation: each chunk's state as S^T (then the state before it),
+    # each chunk's cumulative log-decay, each chunk's C B^T
+    sizes = scratch_sizes(b, l, h, p, n)
     scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     states = scratch.data_ptr()
     cs = states + 4 * sizes[0]
@@ -390,19 +484,19 @@ def _forward(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     if status != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: CUDA error "
                            f"{status}")
-    return (final, scratch[:sizes[0]].view(b, chunks, h, n, p),
-            scratch[sizes[0]:sizes[0] + sizes[1]].view(b, chunks, h, CHUNK))
+    return final, scratch
 
 
 def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                   C: torch.Tensor, init_state: torch.Tensor | None = None,
-                  chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+                  chunk: int = CHUNK, keep_scratch: bool = False):
     """Launch the CUDA kernels on the current stream; never synchronises.
     One call counts as one launch (it starts three CUDA kernels, two
     for a single chunk).
 
     x: (b, l, h, p); a: (b, l, h); B/C: (b, l, n); init_state (b, h, p, n)
-    or None for zeros; all f32 -> y (b, l, h, p), final state (b, h, p, n).
+    or None for zeros; all f32 -> y (b, l, h, p), final state (b, h, p, n),
+    and with ``keep_scratch`` the forward's scratch for the backward.
     """
     check_ssd_args(x, a, B, C, init_state, chunk)
     _check_cuda(x, B, C, init_state)
@@ -410,11 +504,13 @@ def ssd_scan_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     n = B.shape[-1]
     y = torch.empty_like(x)
     if b * h * p * n == 0:
-        return y, torch.empty((b, h, p, n), dtype=torch.float32,
-                              device=x.device)
-    final, _, _ = _forward(x, a, B, C, init_state, y)
-    ssd_scan_cuda.launches += 1
-    return y, final
+        final = torch.empty((b, h, p, n), dtype=torch.float32,
+                            device=x.device)
+        scratch = x.new_empty(0)
+    else:
+        final, scratch = _forward(x, a, B, C, init_state, y)
+        ssd_scan_cuda.launches += 1
+    return (y, final, scratch) if keep_scratch else (y, final)
 
 
 ssd_scan_cuda.launches = 0
@@ -438,16 +534,39 @@ def check_ssd_bwd_args(x: torch.Tensor, dy: torch.Tensor,
                          "inputs' device")
 
 
+BWD_SETUP = 0.25  # a backward CTA's set-up (B, C, dB, dC), in heads
+
+
+@functools.lru_cache(maxsize=64)
+def ssd_bwd_plan(b: int, l: int, h: int, sms: int) -> int:
+    """Heads per CTA of the backward's chunk pass, from the shape and the SM
+    count alone.  That pass runs one CTA per SM at a time, each CTA its
+    heads in turn, so a plan costs the busiest SM's waves of CTAs times
+    what one CTA does: its heads plus its set-up.  The cheapest wins; among
+    equals, more heads per CTA (fewer partial sums of dB and dC)."""
+    chunks = -(-l // CHUNK)
+    best = None
+    for heads in range(1, h + 1):
+        ctas = b * chunks * -(-h // heads)
+        cost = -(-ctas // sms) * (heads + BWD_SETUP)
+        if best is None or cost <= best[0]:
+            best = (cost, heads)
+    return best[1]
+
+
 def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                       C: torch.Tensor, init_state: torch.Tensor | None,
                       dy: torch.Tensor, dfinal: torch.Tensor | None,
-                      chunk: int = CHUNK):
+                      chunk: int = CHUNK,
+                      scratch: torch.Tensor | None = None):
     """Gradients of ``ssd_scan_cuda``'s (y, final) on the current stream;
-    never synchronises.  One call counts as one launch: the forward's two
-    first passes, then the four of ``csrc/ssd_scan_bwd.cu`` (each chunk's
-    own state gradient, the recurrence across chunks in reverse, each
-    chunk and head, the sum over heads of dB and dC).  Arguments and
-    results are ``ssd_scan_bwd_plain``'s."""
+    never synchronises.  ``scratch`` is the forward's (``keep_scratch``) on
+    these inputs; given None, the forward's first two passes run again
+    first.  One call counts as one launch: the three kernels of
+    ``csrc/ssd_scan_bwd.cu`` (the state gradients across the chunks in
+    reverse, each chunk and group of heads, the sum of dB and dC over the
+    groups; two with a single group).  Arguments and results are
+    ``ssd_scan_bwd_plain``'s."""
     check_ssd_args(x, a, B, C, init_state, chunk)
     check_ssd_bwd_args(x, dy, dfinal)
     _check_cuda(x, B, C, init_state, dy, dfinal)
@@ -461,24 +580,33 @@ def ssd_scan_bwd_cuda(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
                  else torch.zeros_like(dinit))
         return (dx, da, dB.zero_(), dC.zero_(),
                 dinit if init_state is not None else None)
-    _, prev, cs = _forward(x, a, B, C, init_state, None)
-    chunks = prev.shape[1]
-    # scratch: each chunk's state gradient (S^T layout), then the per-head
-    # dB and dC before their sum over heads
-    sizes = (b * chunks * h * n * p, b * l * h * n, b * l * h * n)
-    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    gs = scratch.data_ptr()
-    dbh = gs + 4 * sizes[0]
-    dch = dbh + 4 * sizes[1]
+    if scratch is None:
+        _, scratch = _forward(x, a, B, C, init_state, None)
+    elif scratch.device != x.device:
+        raise ValueError("SSD scratch on another device than the inputs")
+    prev, cs, cb = scratch_views(scratch, b, l, h, p, n)
     index = x.device.index
+    heads = ssd_bwd_plan(b, l, h, _sm_count(index))
+    groups = -(-h // heads)
+    chunks = prev.shape[1]
+    # each chunk's state gradient (S^T layout), then, with more than one
+    # group, each group's dB and dC before their sum
+    sizes = (b * chunks * h * n * p,) + ((b * l * groups * n,) * 2
+                                         if groups > 1 else ())
+    work = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    gs = work.data_ptr()
+    dbg = dcg = None
+    if groups > 1:
+        dbg = gs + 4 * sizes[0]
+        dcg = dbg + 4 * sizes[1]
     with torch.cuda._DeviceGuard(index):
         fn = _bwd_library().repro_ssd_scan_bwd
         status = fn(x.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
                     None if dfinal is None else dfinal.data_ptr(),
-                    prev.data_ptr(), cs.data_ptr(), dx.data_ptr(),
-                    da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-                    dinit.data_ptr(), gs, dbh, dch, b, l, h, p, n,
-                    build.current_stream(index))
+                    prev.data_ptr(), cs.data_ptr(), cb.data_ptr(),
+                    dx.data_ptr(), da.data_ptr(), dB.data_ptr(),
+                    dC.data_ptr(), dinit.data_ptr(), gs, dbg, dcg, b, l, h,
+                    p, n, heads, build.current_stream(index))
     if status != 0:
         raise RuntimeError(f"SSD scan backward kernel launch failed: CUDA "
                            f"error {status}")

@@ -155,10 +155,12 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     """Self-attention with an optional ring-buffer KV cache, or, with
     ``kv_source`` (B, Skv, d), attention of x's queries over keys and values
     projected from it: bidirectional (no mask), no RoPE, no cache, through
-    the flash kernel with ``causal=False``.  That is the encoder's self-
-    attention (``kv_source`` = x) and the decoder's cross-attention over the
-    encoder output; with no source frames it is zeros, as a softmax over an
-    empty axis is in the JAX package.
+    the flash kernel with ``causal=False``, or through ``sdpa`` while a
+    gradient is recorded (training; prefill and decode run under
+    ``torch.no_grad()``).  That is the encoder's self-attention
+    (``kv_source`` = x) and the decoder's cross-attention over the encoder
+    output; with no source frames it is zeros, as a softmax over an empty
+    axis is in the JAX package.
 
     kv_cache (built by ``transformer.ring_info`` for the whole step):
         {"k"/"v": (B, kv_len, Hkv, D) this layer's cache, written in place,
@@ -194,8 +196,14 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         k = apply_rope(k, positions, cfg.rope_theta)
 
     if kv_source is not None:
-        out = (ops.flash_attention(q, k, v, causal=False) if k.shape[1]
-               else q.new_zeros(q.shape))
+        if not k.shape[1]:
+            out = q.new_zeros(q.shape)
+        elif torch.is_grad_enabled():
+            # training attends through sdpa, as the JAX package does at
+            # every step: the flash kernel has no backward
+            out = sdpa(q, k, v, None)
+        else:
+            out = ops.flash_attention(q, k, v, causal=False)
     elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         kv_len = ck.shape[1]
