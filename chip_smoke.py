@@ -42,7 +42,8 @@ Phases, each printing one JSON line:
            and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
            then zamba2-7b serving 8
   families the same for the MoE and xLSTM families: qwen2-moe-a2.7b
-           (14.3 B parameters) serving 8 requests, xlstm-125m serving 8
+           (full width, 12 of its 24 layers) serving 8 requests,
+           xlstm-125m serving 8
   control  the DPU closed loop of examples/serve_with_dpu_telemetry.py at
            full width: qwen3-0.6b (bf16, seeded weights) from static
            batching, telemetry over the modeled wire into the DPU sidecar,
@@ -58,6 +59,19 @@ Phases, each printing one JSON line:
            fixture says; hot_replica's loop off and on; the smoke sweep's
            gate and the golden fixture's smoke scenarios; the port's linter
            clean (its first line gives numpy's version)
+  dist     the distribution layer (child processes: this process keeps no
+           process group): full-size qwen3-0.6b trained through
+           repro_torch.launch.train with --mesh 1,1 (MeshRules over a
+           one-rank NCCL group, DTensor parameters) and without it, each
+           step's loss equal within 2e-2 and both ms/step; full-width
+           qwen3-0.6b prefill of 1024 tokens and 8 decode steps with
+           shard=MeshRules against NOSHARD, logits within 2e-2 and the same
+           flash and paged launches; the paged kernel's log-sum-exp output
+           on the serve case's 8 slots, each sequence cut in two slices and
+           merged against one whole call, and the whole call timed with and
+           without it; the dry-run and roofline of the three hill-climb
+           cells on a 16x16 fake mesh (host counts over meta tensors, no
+           card)
 Then the per-kernel summary line, the card's name and power limit as
 nvidia-smi gives them, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1237,17 +1251,20 @@ def moe_step_weights(torch, cfg, step, tokens: list[int]) -> dict:
 
 
 def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
-               seed: int = 0, profile_prefill: int = 1024) -> dict:
-    """Full-size ``arch``, bf16, seeded weights, behind the engine with
-    telemetry and mitigation: one request per prompt length in ``lens``
-    with ``new_tokens`` (a range) new tokens each; then the profile of a
-    decode step of all 8 slots and of a ``profile_prefill``-token
-    prefill."""
+               seed: int = 0, profile_prefill: int = 1024,
+               n_layers: int | None = None) -> dict:
+    """Full-size ``arch`` (its depth cut to ``n_layers`` when given), bf16,
+    seeded weights, behind the engine with telemetry and mitigation: one
+    request per prompt length in ``lens`` with ``new_tokens`` (a range) new
+    tokens each; then the profile of a decode step of all 8 slots and of a
+    ``profile_prefill``-token prefill."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import build_model
     from repro_torch.serving import (EngineConfig, InferenceEngine,
                                      ServeRequest)
     cfg = ARCHS[arch]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=seed)
     torch.cuda.synchronize()
@@ -1338,14 +1355,20 @@ def phase_serve(torch, ops) -> dict:
     return {"cases": [qwen, zamba]}
 
 
+MOE_SERVE_LAYERS = 12   # qwen2-moe-a2.7b's serve case: depth cut from 24
+
+
 def phase_families(torch, ops) -> dict:
-    """The families beyond dense and hybrid at full size behind the engine:
-    qwen2-moe-a2.7b (14.3 B parameters, MoE) serving 8 requests over every
-    prefill bucket, and xlstm-125m serving 8 in the 64-256 buckets (its
-    recurrences run a Python step per token and cell, so a long prefill is
-    host-bound; its prefill is profiled at 256 tokens)."""
+    """The families beyond dense and hybrid at full width behind the
+    engine: qwen2-moe-a2.7b (MoE; 12 of its 24 layers, 7.3 B parameters:
+    drawing all 14.3 B on the host took ~120 s of the script's time limit)
+    serving 8 requests over every prefill bucket, and xlstm-125m at full
+    size serving 8 in the 64-256 buckets (its recurrences run a Python step
+    per token and cell, so a long prefill is host-bound; its prefill is
+    profiled at 256 tokens)."""
     moe = serve_case(torch, ops, "qwen2-moe-a2.7b",
-                     [50, 64, 120, 200, 256, 333, 512, 1000], (16, 65))
+                     [50, 64, 120, 200, 256, 333, 512, 1000], (16, 65),
+                     n_layers=MOE_SERVE_LAYERS)
     xlstm = serve_case(torch, ops, "xlstm-125m",
                        [40, 64, 90, 128, 150, 200, 230, 256], (16, 65),
                        profile_prefill=256)
@@ -1800,8 +1823,218 @@ def time_ssd_tree(src: Path) -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# phase 8: the distribution layer
+# ----------------------------------------------------------------------
+
+DIST_TRAIN = ["--full-config", "--arch", "qwen3-0.6b", "--steps", "4",
+              "--batch", "8", "--seq", "512", "--micro", "2"]
+STEP_RE = re.compile(r"step\s+(\d+) loss (\S+) gnorm (\S+) (\d+) ms")
+
+
+def src_env() -> dict:
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else []))}
+
+
+def dist_train() -> dict:
+    """launch.train with --mesh 1,1 and without: the same losses."""
+    runs = {}
+    for tag, extra in (("mesh", ["--mesh", "1,1"]), ("plain", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *DIST_TRAIN,
+             *extra], cwd=ROOT, env=src_env(), capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"train {tag} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        steps = [(int(m[1]), float(m[2]), float(m[3]), int(m[4]))
+                 for m in STEP_RE.finditer(proc.stdout)]
+        check(len(steps) == 4, f"train {tag} printed {proc.stdout}")
+        runs[tag] = {"losses": [s[1] for s in steps],
+                     "grad_norms": [s[2] for s in steps],
+                     "ms_per_step": [s[3] for s in steps],
+                     "seconds": time.perf_counter() - t0}
+    for a, b in zip(runs["mesh"]["losses"], runs["plain"]["losses"]):
+        check(math.isfinite(a) and abs(a - b) <= 2e-2 * abs(b),
+              f"sharded loss {a} against unsharded {b}")
+    return runs
+
+
+def dist_serve_child() -> dict:
+    """In a child process: full-width qwen3-0.6b, bf16, seeded weights;
+    prefill 2 x 1024 tokens and 8 decode steps unsharded, then the same
+    model distributed over a one-rank mesh with shard=MeshRules."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import start_group
+    from repro_torch.models import build_model
+    from repro_torch.parallel.sharding import (NOSHARD, MeshRules,
+                                               distribute_model, full)
+    cfg = ARCHS["qwen3-0.6b"]
+    model = build_model(cfg, device="cuda", seed=0)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (2, 1024), generator=gen)
+    steps = torch.randint(0, cfg.vocab, (8, 2, 1), generator=gen)
+    start_group("cuda")
+    rules = MeshRules(init_device_mesh("cuda", (1, 1),
+                                       mesh_dim_names=("data", "model")))
+    out = {}
+    for tag, shard in (("plain", NOSHARD), ("mesh", rules)):
+        if shard is rules:
+            distribute_model(model, rules)
+        cache = model.init_cache(2, 2048, page_size=16)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(prompt.cuda(), cache, shard=shard)
+        got = [full(logits).float()]
+        for t in range(8):
+            logits, cache = model.decode_step(steps[t].cuda(), cache,
+                                              shard=shard)
+            got.append(full(logits).float())
+        torch.cuda.synchronize()
+        out[tag] = {"logits": torch.cat(got, 1), "launches":
+                    ops.launch_counts(),
+                    "seconds": time.perf_counter() - t0}
+    a, b = out["mesh"]["logits"], out["plain"]["logits"]
+    check(bool(torch.isfinite(a).all()), "sharded logits not finite")
+    err = float((a - b).abs().max())
+    check(bool(((a - b).abs() <= 2e-2 + 2e-2 * b.abs()).all()),
+          f"sharded logits differ from unsharded: max |d| {err}")
+    check(out["mesh"]["launches"] == out["plain"]["launches"],
+          f"launches {out['mesh']['launches']} against "
+          f"{out['plain']['launches']}")
+    want = kernel_launches(cfg, 1, 8)
+    check(out["plain"]["launches"] == want,
+          f"launches {out['plain']['launches']}, want {want}")
+    torch.distributed.destroy_process_group()
+    return {"max_abs_err": err, "launches": out["mesh"]["launches"],
+            "plain_seconds": out["plain"]["seconds"],
+            "mesh_seconds": out["mesh"]["seconds"]}
+
+
+def dist_lse(torch, ops, timer, kern: dict | None) -> dict:
+    """The paged kernel's log-sum-exp: the serve case's 8 slots (qwen3
+    heads, 2048 positions in pages of 16), each sequence cut at a page
+    boundary into two slices attended apart with their local lengths and
+    merged, against one whole call; in bf16 and f32.  The whole call is
+    timed with and without the output."""
+    rng = random.Random(0)
+    lens = sorted(rng.randrange(64, 1153) for _ in range(8))
+    b, page, per_seq, hq, hkv, d = 8, 16, 128, 16, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, hq, d), generator=gen, device="cuda").to(dt)
+        kp, vp = (torch.randn((b * per_seq, page, hkv, d), generator=gen,
+                              device="cuda").to(dt) for _ in range(2))
+        table = torch.arange(b * per_seq, dtype=torch.int32,
+                             device="cuda").view(b, per_seq)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        whole = ops.paged_attention(q, kp, vp, table, lengths)
+        o, lse = ops.paged_attention(q, kp, vp, table, lengths,
+                                     return_lse=True)
+        check(bool(torch.equal(o, whole)), "the log-sum-exp call changed "
+              "the output")
+        half = per_seq // 2
+        parts = []
+        for lo in (0, half):
+            sub = table[:, lo:lo + half].contiguous()
+            loc = torch.clamp(lengths - lo * page, 0, half * page).to(
+                torch.int32)
+            parts.append(ops.paged_attention(q, kp, vp, sub, loc,
+                                             return_lse=True))
+        (o0, l0), (o1, l1) = parts
+        top = torch.maximum(l0, l1)
+        w0, w1 = torch.exp(l0 - top), torch.exp(l1 - top)
+        merged = (o0.float() * w0[..., None] + o1.float() * w1[..., None]) \
+            / (w0 + w1)[..., None]
+        err = max_err(torch, merged, whole, dtype, TOL[dtype])
+        lse_err = float((torch.logaddexp(l0, l1) - lse).abs().max())
+        check(lse_err <= 1e-4 * float(lse.abs().max()) + 1e-4,
+              f"merged log-sum-exp off by {lse_err}")
+        row = {"dtype": dtype, "lengths": lens, "max_abs_err": err,
+               "lse_err": lse_err}
+        if dtype == "bfloat16":
+            timer.into(row, "whole_", lambda: ops.paged_attention(
+                q, kp, vp, table, lengths), flush=True)
+            timer.into(row, "lse_", lambda: ops.paged_attention(
+                q, kp, vp, table, lengths, return_lse=True), flush=True)
+            row["lse_over_whole"] = row["lse_device_ms"] / \
+                row["whole_device_ms"]
+            check(row["lse_over_whole"] <= 1.03, f"the log-sum-exp output "
+                  f"costs {row['lse_over_whole']:.3f}x the whole call")
+            if kern is not None:
+                main = next(r for r in kern["paged_attention"]
+                            if r.get("main"))
+                row["kernels_phase_device_ms"] = main["device_ms"]
+                row["lse_over_kernels_phase"] = row["lse_device_ms"] / \
+                    main["device_ms"]
+        rows.append(row)
+    return {"cases": rows}
+
+
+def phase_dist(torch, ops, timer, kern: dict | None) -> dict:
+    # the dry-run needs no card: it runs beside the card's cases
+    out_dir = ROOT / "build" / "dist_hillclimb"
+    if out_dir.exists():
+        for f in out_dir.glob("*.json"):
+            f.unlink()
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.hillclimb", "--base-only",
+         "--out", str(out_dir)], cwd=ROOT, env=src_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        train = dist_train()
+        train["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child"],
+            cwd=ROOT, env=src_env(), capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0, f"sharded serving exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        serve = json.loads(proc.stdout.strip().splitlines()[-1])
+        serve["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lse = dist_lse(torch, ops, timer, kern)
+        lse["seconds"] = time.perf_counter() - t0
+        stdout, stderr = dry.communicate(timeout=600)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    check(dry.returncode == 0, f"hillclimb exited {dry.returncode}: "
+          f"{stderr[-3000:]}")
+    cells = []
+    for f in sorted(out_dir.glob("*.json")):
+        rec = json.loads(f.read_text())
+        check(rec.get("ok") and rec["flops_per_device"] > 0,
+              f"dry-run cell {f.name}: {rec.get('error')}")
+        check(rec["calibration_check"]["flops_per_device"]["rel_diff"]
+              == 0.0, f"{f.name}: the calibration misses the count")
+        cells.append({k: rec[k] for k in (
+            "arch", "shape", "mesh", "lower_s", "flops_per_device",
+            "bytes_per_device", "collective_bytes",
+            "collective_bytes_by_axis", "memory", "roofline",
+            "calibration_check")})
+    check(len(cells) == 3, f"dry-run wrote {len(cells)} cells")
+    return {"train": train, "serve": serve, "lse": lse,
+            "dryrun": {"host_counts_on_meta_tensors": True,
+                       "seconds": time.perf_counter() - t_dry,
+                       "cells": cells}}
+
+
 PHASES = ("kernels", "path", "train", "serve", "families", "control",
-          "launch", "quickstart")
+          "launch", "quickstart", "dist")
 
 
 def main() -> int:
@@ -1813,6 +2046,8 @@ def main() -> int:
     ap.add_argument("--ssd-tree", metavar="SRC", type=Path,
                     help="only time the SSD scan of the package under SRC "
                          "(another tree's src/) at the prefill buckets")
+    ap.add_argument("--dist-child", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.ssd_tree:
         return time_ssd_tree(args.ssd_tree.resolve())
@@ -1829,6 +2064,10 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.kernels import build, ops
+    if args.dist_child:
+        build.build()
+        emit(dist_serve_child())
+        return 0
 
     t0 = time.perf_counter()
     smi = smi_line()
@@ -1881,6 +2120,12 @@ def main() -> int:
         quick = phase_quickstart(torch, ops)
         emit({"phase": "quickstart", "gpu": smi,
               "seconds": time.perf_counter() - t0, **quick})
+    if "dist" in phases:
+        t0 = time.perf_counter()
+        dist = phase_dist(torch, ops, Timer(torch),
+                          kern if "kernels" in phases else None)
+        emit({"phase": "dist", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **dist})
     if tuple(phases) != PHASES:
         # a partial run proves nothing about the port: no "ok" line
         print(smi, flush=True)
@@ -1892,7 +2137,7 @@ def main() -> int:
     # and the training runs (each run's counts were set to 0 just before
     # it)
     runs = (serve["cases"] + families["cases"] + [control, quick]
-            + train["cases"] + [train["full"]])
+            + train["cases"] + [train["full"], dist["serve"]])
     launches = {name: sum(c["launches"][name] for c in runs)
                 for name in REPLACES}
     summary = []

@@ -40,6 +40,10 @@
 //   head) counter; the last to arrive merges the live partials, writes the
 //   output and sets its counter back to 0, so the combine needs no second
 //   launch and the counters stay zeroed between launches.
+// - Optionally (lse non-null) the launch also writes each head's
+//   log-sum-exp of its scaled scores, lse (B, Hq) f32 (-inf at length 0),
+//   from the m and l it already holds, so that slices of one sequence
+//   attended apart (a sequence-sharded cache) merge exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,8 +138,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                    const T* __restrict__ vp, const int* __restrict__ table,
                    const int* __restrict__ lengths, T* __restrict__ o,
                    float* __restrict__ part, int* __restrict__ counters,
-                   int Hq, int Hkv, int D, int page, int per_seq, int split,
-                   float sm_scale) {
+                   float* __restrict__ lse, int Hq, int Hkv, int D, int page,
+                   int per_seq, int split, float sm_scale) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int MAXC = (128 / VEC + LPT - 1) / LPT;  // chunks per lane
   constexpr int CT = chunk_tokens<T>();
@@ -166,9 +170,13 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int len = max(0, min(lengths[b], per_seq * page));
   const int n_live = (len + split - 1) / split;  // splits holding tokens
   T* og = o + (size_t(b) * Hq + size_t(hk) * G) * D;
+  float* lse_g = lse ? lse + size_t(b) * Hq + size_t(hk) * G : nullptr;
   if (len == 0) {  // no token: split 0 writes zeros
-    if (sp == 0)
+    if (sp == 0) {
       for (int e = tid; e < G * D; e += THREADS) store(&og[e], 0.f);
+      if (lse_g)
+        for (int g = tid; g < G; g += THREADS) lse_g[g] = -INFINITY;
+    }
     return;
   }
   if (sp >= n_live) return;  // past the length: nothing to read or merge
@@ -355,7 +363,11 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     else
       mine[g * (D + 2) + (e - g * D)] = sum;
   }
-  if (n_live == 1) return;
+  if (n_live == 1) {
+    if (lse_g)
+      for (int g = tid; g < G; g += THREADS) lse_g[g] = m_s[g] + logf(l_s[g]);
+    return;
+  }
   for (int g = tid; g < G; g += THREADS) {
     mine[g * (D + 2) + D] = m_s[g];
     mine[g * (D + 2) + D + 1] = l_s[g];
@@ -391,6 +403,7 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       L += ml[2 * (s * G + g) + 1] * wt;
     }
     inv_s[g] = 1.f / L;  // every live split holds a token: L > 0
+    if (lse_g) lse_g[g] = M + logf(L);
   }
   __syncthreads();
   for (int e = tid; e < G * D; e += THREADS) {
@@ -413,8 +426,8 @@ size_t smem_opened[2][MAX_DEVICES];
 template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* table,
            const void* lengths, void* o, void* partials, void* counters,
-           int B, int Hq, int Hkv, int D, int page, int per_seq, int split,
-           int n_splits, cudaStream_t stream) {
+           void* lse, int B, int Hq, int Hkv, int D, int page, int per_seq,
+           int split, int n_splits, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(Hq / Hkv, D, n_splits);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -436,8 +449,9 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(o),
-      static_cast<float*>(partials), static_cast<int*>(counters), Hq, Hkv, D,
-      page, per_seq, split, 1.f / sqrtf(float(D)));
+      static_cast<float*>(partials), static_cast<int*>(counters),
+      static_cast<float*>(lse), Hq, Hkv, D, page, per_seq, split,
+      1.f / sqrtf(float(D)));
   return int(cudaGetLastError());
 }
 
@@ -446,22 +460,23 @@ int launch(const void* q, const void* kp, const void* vp, const void* table,
 // Plain C entry: dtype 0 = float32, 1 = bfloat16.  partials: f32 scratch
 // of B * Hkv * n_splits * G * (D + 2); counters: B * Hkv int32, zero on
 // entry and left zero (one launch at a time may use them); n_splits =
-// ceil(per_seq * page / split).  Returns the CUDA error code of the launch
-// (0 = launched).
+// ceil(per_seq * page / split); lse: null, or (B, Hq) f32 for each head's
+// log-sum-exp.  Returns the CUDA error code of the launch (0 = launched).
 extern "C" int repro_paged_attention(const void* q, const void* k_pages,
                                      const void* v_pages,
                                      const void* block_table,
                                      const void* lengths, void* o,
-                                     void* partials, void* counters, int B,
+                                     void* partials, void* counters,
+                                     void* lse, int B,
                                      int Hq, int Hkv, int D, int page,
                                      int per_seq, int split, int n_splits,
                                      int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pages, v_pages, block_table, lengths,
-                                 o, partials, counters, B, Hq, Hkv, D, page,
-                                 per_seq, split, n_splits, s);
+                                 o, partials, counters, lse, B, Hq, Hkv, D,
+                                 page, per_seq, split, n_splits, s);
   return launch<float>(q, k_pages, v_pages, block_table, lengths, o,
-                       partials, counters, B, Hq, Hkv, D, page, per_seq,
+                       partials, counters, lse, B, Hq, Hkv, D, page, per_seq,
                        split, n_splits, s);
 }

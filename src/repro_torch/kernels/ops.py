@@ -3,16 +3,22 @@ lie.
 
 A CUDA tensor goes to the hand-written Hopper kernel, which launches or
 raises.  A CPU tensor goes to the kernel's plain PyTorch version.  There is
-no fallback from one to the other.  Both sides check their arguments the
-same way (the CUDA wrapper checks its own, once, as it is on the decode
-step's host-bound path), so the CPU tests hold the model to what the
-kernels take.
+no fallback from one to the other.  A meta tensor (the dry-run's shapes,
+no data) goes to the plain version too: asking for ``meta`` is asking for
+shapes and op counts, not for a fallback; any other device raises.  Both
+sides check their arguments the same way (the CUDA wrapper checks its own,
+once, as it is on the decode step's host-bound path), so the CPU tests hold
+the model to what the kernels take.
 
 The SSD scan is differentiable: ``ssd_scan`` goes through one
 ``torch.autograd.Function`` whose forward and backward are the two CUDA
 kernels for CUDA tensors and the two plain versions for CPU tensors.  Flash
 and paged attention have no backward kernel: on the card they raise when
 asked to record a gradient, rather than give one without the attention.
+
+``meta_region``, when the dry-run's op counter sets it, wraps each call on
+meta tensors: the counter books the kernel's bytes (its inputs read once,
+its outputs written once) rather than the plain version's intermediates.
 
 ``launch_counts`` reads how many times each kernel was launched, and
 ``reset_launch_counts`` sets them to zero, so a run can show that its path
@@ -49,6 +55,21 @@ KERNELS = {"flash_attention": flash_attention_cuda,
            "ssd_scan_bwd": ssd_scan_bwd_cuda}
 
 
+# set by launch.dryrun's counter: name, input tensors -> a context manager
+# yielding a callback that takes the outputs
+meta_region = None
+
+
+def _plain(name: str, inputs: tuple, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, inside ``meta_region`` on meta tensors."""
+    if meta_region is None or inputs[0].device.type != "meta":
+        return fn(*args, **kwargs)
+    with meta_region(name, inputs) as done:
+        out = fn(*args, **kwargs)
+        done(out)
+    return out
+
+
 def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
     """A kernel without a backward must not drop its term from a gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -64,24 +85,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _refuse_grad("flash attention", q, k, v)
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     check_flash_args(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type in ("cpu", "meta"):
+        return _plain("flash_attention", (q, k, v), flash_attention_plain,
+                      q, k, v, causal=causal, window=window)
     raise ValueError(f"no flash attention for device {q.device}")
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_table: torch.Tensor,
-                    lengths: torch.Tensor) -> torch.Tensor:
+                    lengths: torch.Tensor, return_lse: bool = False):
     """q: (B, Hq, D); k/v_pages: (P, page, Hkv, D); block_table
-    (B, per_seq) int32; lengths (B,) int32 -> (B, Hq, D)."""
+    (B, per_seq) int32; lengths (B,) int32 -> (B, Hq, D), and with
+    ``return_lse`` each head's log-sum-exp of its scaled scores (B, Hq) f32
+    (-inf at length 0), by which slices of one sequence merge."""
     if q.device.type == "cuda":
         _refuse_grad("paged attention", q, k_pages, v_pages)
         return paged_attention_cuda(q, k_pages, v_pages, block_table,
-                                    lengths)
+                                    lengths, return_lse)
     check_paged_args(q, k_pages, v_pages, block_table, lengths)
-    if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, block_table,
-                                     lengths)
+    if q.device.type in ("cpu", "meta"):
+        return _plain("paged_attention", (q, k_pages, v_pages, block_table,
+                                          lengths), paged_attention_plain,
+                      q, k_pages, v_pages, block_table, lengths, return_lse)
     raise ValueError(f"no paged attention for device {q.device}")
 
 
@@ -98,8 +123,8 @@ class SsdScan(torch.autograd.Function):
     def forward(ctx, x, a, B, C, init_state, chunk):
         fwd = ssd_scan_cuda if x.device.type == "cuda" else ssd_scan_plain
         ctx.set_materialize_grads(False)
-        y, final, scratch = fwd(x, a, B, C, init_state, chunk,
-                                keep_scratch=True)
+        y, final, scratch = _plain("ssd_scan", (x, a, B, C), fwd, x, a, B,
+                                   C, init_state, chunk, keep_scratch=True)
         ctx.save_for_backward(x, a, B, C, init_state, scratch)
         ctx.chunk = chunk
         return y, final
@@ -115,8 +140,9 @@ class SsdScan(torch.autograd.Function):
                                       ctx.chunk, scratch=scratch)
         else:
             check_ssd_bwd_args(x, dy, dfinal)
-            grads = ssd_scan_bwd_plain(x, a, B, C, init_state, dy, dfinal,
-                                       ctx.chunk, scratch=scratch)
+            grads = _plain("ssd_scan_bwd", (x, a, B, C, dy),
+                           ssd_scan_bwd_plain, x, a, B, C, init_state, dy,
+                           dfinal, ctx.chunk, scratch=scratch)
         return (*grads, None)
 
 
@@ -126,9 +152,9 @@ def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n); init_state
     (b, h, p, n) or None; all f32 -> y (b, l, h, p), final state
     (b, h, p, n), differentiable in every input."""
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no SSD scan for device {x.device}")
-    if x.device.type == "cpu":
+    if x.device.type != "cuda":
         check_ssd_args(x, a, B, C, init_state, chunk)
     return SsdScan.apply(x, a, B, C, init_state, chunk)
 

@@ -5,7 +5,9 @@ host-side plan and its plain PyTorch version.
 (KV head, sequence, split), each CTA serving the G query heads of its KV
 head over one split of ``split`` tokens, read in chunks whose page tiles
 are all in flight at once (cp.async); each CTA writes a partial (m, l, acc)
-and the last CTA of a (sequence, KV head) merges them in the same launch.
+and the last CTA of a (sequence, KV head) merges them in the same launch;
+asked for it (``return_lse``), the launch also writes each head's
+log-sum-exp (B, Hq) f32, so that slices of a sequence merge exactly.
 ``paged_plan`` fixes the split and the scratch from the cache's capacity
 alone (no read of ``lengths``).  ``paged_attention_plain`` is the same
 function in plain PyTorch (``ref.paged_attention_ref``); the CPU path and
@@ -96,7 +98,7 @@ def _library() -> ctypes.CDLL:
     lib = build.library("paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -117,11 +119,13 @@ def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, block_table: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor, return_lse: bool = False):
     """Launch the CUDA kernel on the current stream; never synchronises.
 
     q: (B, Hq, D); k/v_pages: (P, page, Hkv, D); block_table (B, per_seq)
-    int32; lengths (B,) int32 -> (B, Hq, D) in q's dtype.
+    int32; lengths (B,) int32 -> (B, Hq, D) in q's dtype, and with
+    ``return_lse`` each head's log-sum-exp of its scaled scores (B, Hq) f32
+    (-inf at length 0) beside it.
     """
     check_paged_args(q, k_pages, v_pages, block_table, lengths)
     if q.device.type != "cuda":
@@ -133,8 +137,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     per_seq = block_table.shape[1]
     plan = paged_plan(b, hkv, hq // hkv, d, per_seq, page)
     partials = torch.empty(plan.partial_shape, dtype=torch.float32,
@@ -146,14 +152,16 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         status = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                     block_table.data_ptr(), lengths.data_ptr(),
                     out.data_ptr(), partials.data_ptr(),
-                    counters.data_ptr(), b, hq, hkv, d, page, per_seq,
+                    counters.data_ptr(),
+                    lse.data_ptr() if return_lse else None,
+                    b, hq, hkv, d, page, per_seq,
                     plan.split, plan.n_splits, DTYPE_CODES[q.dtype],
                     build.current_stream(q.device.index))
     if status != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {status}")
     paged_attention_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention_cuda.launches = 0

@@ -51,14 +51,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_table: torch.Tensor,
-                        lengths: torch.Tensor) -> torch.Tensor:
+                        lengths: torch.Tensor, return_lse: bool = False):
     """Decode attention over a paged KV cache.
 
     q:           (B, Hq, D)        one query token per sequence
     k/v_pages:   (P, page, Hkv, D) physical page pool
     block_table: (B, pages_per_seq) int32 physical page ids
     lengths:     (B,) int32 current sequence lengths
-    returns      (B, Hq, D)
+    returns      (B, Hq, D), and with ``return_lse`` the log-sum-exp of
+                 each head's scaled scores (B, Hq) f32, -inf at length 0
     """
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
@@ -75,8 +76,8 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     mask = pos < lengths.to(q.device).long()[:, None]
     s = s.masked_fill(~mask[:, None, :], -math.inf)
     p = _softmax_zero_masked(s)
-    out = torch.einsum("bhk,bkhd->bhd", p, v)
-    return out.to(q.dtype)
+    out = torch.einsum("bhk,bkhd->bhd", p, v).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if return_lse else out
 
 
 def ssd_scan_ref(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,

@@ -6,19 +6,29 @@
 The reduced config by default (``--full-config`` for the published one);
 seeded weights (``--seed``); the model trains on the card (``--device
 cuda``, the default) or, with ``--device cpu``, on the kernels' plain
-versions on the CPU.  A sharded run (``--mesh``) comes with the port's
-distribution slice.
+versions on the CPU.
+
+A sharded run (``--mesh data,model``) builds ``MeshRules`` over a d x m
+DeviceMesh of the process group and trains the DTensor-sharded model (the
+Trainer's ``shard``): under ``torchrun`` with d * m ranks (NCCL on the
+card, gloo with ``--device cpu``), or with ``--mesh 1,1`` alone, which
+starts a group of one rank itself.  Rank 0 prints.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --arch qwen3-0.6b --mesh 2,2 --steps 4
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from repro_torch.configs import ARCHS
 from repro_torch.data import (DataConfig, Prefetcher, SyntheticCorpus,
                               pack_documents)
 from repro_torch.models import build_model
 from repro_torch.training import AdamWConfig, TrainConfig, Trainer
+from repro_torch.training.train_loop import _rank
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -34,16 +44,34 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--full-config", action="store_true",
                     help="use the full published config")
     ap.add_argument("--mesh", default="",
-                    help="data,model extents for a sharded run (not in "
-                         "the port yet)")
+                    help="data,model extents for a sharded run, e.g. 2,2")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="device the model trains on (cuda or cpu)")
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh: sharded training comes with the port's "
-                 "distribution slice (parallel/sharding.py); run without it")
+        d, m = (int(x) for x in args.mesh.split(","))
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        if d * m != world:
+            ap.error(f"--mesh {args.mesh} needs {d * m} ranks (torchrun "
+                     f"--nproc-per-node {d * m}); this run has {world}")
     return args
+
+
+def make_rules(args: argparse.Namespace):
+    """``MeshRules`` over a (data, model) mesh of ``--mesh``'s extents, the
+    process group started for ``--device``; None without ``--mesh``."""
+    if not args.mesh:
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import mesh_device_type, start_group
+    from repro_torch.parallel.sharding import MeshRules
+    d, m = (int(x) for x in args.mesh.split(","))
+    start_group(args.device)
+    mesh = init_device_mesh(mesh_device_type(), (d, m),
+                            mesh_dim_names=("data", "model"))
+    return MeshRules(mesh)
 
 
 def setup(args: argparse.Namespace) -> tuple[Trainer, Prefetcher]:
@@ -61,24 +89,29 @@ def setup(args: argparse.Namespace) -> tuple[Trainer, Prefetcher]:
         ckpt_every=max(args.steps // 4, 1),
         optimizer=AdamWConfig(warmup_steps=max(args.steps // 10, 1),
                               total_steps=args.steps))
-    return Trainer(model, tcfg), data
+    return Trainer(model, tcfg, shard=make_rules(args)), data
 
 
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     trainer, data = setup(args)
     cfg = trainer.model.cfg
-    print(f"[train] {cfg.name}: ~{cfg.param_count():.2e} params, "
-          f"{args.steps} steps")
+    say = print if _rank() == 0 else (lambda *a, **k: None)
+    mesh = f", mesh {args.mesh}" if args.mesh else ""
+    say(f"[train] {cfg.name}: ~{cfg.param_count():.2e} params, "
+        f"{args.steps} steps{mesh}")
     if trainer.maybe_restore():
-        print(f"[train] resumed at step {trainer.step}")
+        say(f"[train] resumed at step {trainer.step}")
     hist = trainer.run(data)
     for h in hist[:: max(len(hist) // 8, 1)]:
-        print(f"  step {h['step']:4d} loss {h['loss']:.4f} "
-              f"gnorm {h['grad_norm']:.2f} {h['sec'] * 1e3:.0f} ms")
+        say(f"  step {h['step']:4d} loss {h['loss']:.4f} "
+            f"gnorm {h['grad_norm']:.2f} {h['sec'] * 1e3:.0f} ms")
     if hist:
-        print(f"[train] done: loss {hist[0]['loss']:.3f} -> "
-              f"{hist[-1]['loss']:.3f}")
+        say(f"[train] done: loss {hist[0]['loss']:.3f} -> "
+            f"{hist[-1]['loss']:.3f}")
+    if args.mesh:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -12,6 +12,12 @@ Conventions:
   attention     : q (B,S,Hq,D), k/v (B,S,Hkv,D); GQA by reshape, no repeat
   dense weights : (in, out), as in the JAX package, so a layer is ``x @ w``
   KV cache      : one layer's k/v (B, kv_len, Hkv, D), written in place
+
+Every function takes a Sharder (``shard``, default ``NOSHARD``: the plain
+ops, unchanged).  Under ``parallel.sharding.MeshRules`` the tensors are
+DTensors, attention runs on each rank's local heads, and attention over a
+cache runs as that module's docstring describes (a distributed softmax over
+the sequence-sharded cache).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import NOSHARD, P, axis_size, fit
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -143,15 +150,31 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 kv_cache: dict | None = None, use_kernel: bool = False,
-                kv_source: torch.Tensor | None = None) -> torch.Tensor:
+                kv_source: torch.Tensor | None = None,
+                shard=NOSHARD) -> torch.Tensor:
         return attention_fwd(self, self.cfg, x, positions, kv_cache,
-                             use_kernel, kv_source)
+                             use_kernel, kv_source, shard)
+
+
+def on_heads(shard, fn, q: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v)`` -> (B, Sq, Hq, D) on each rank's local batch rows
+    and heads: heads over 'model' when both head counts divide it, else
+    every head on every rank of 'model'."""
+    if not shard.sharded:
+        return fn(q, k, v)
+    m = axis_size(shard.mesh, "model")
+    heads = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
+    spec = (shard.batch_axes, None, heads, None)
+    return shard.local(fn, (q, k, v), (spec,) * 3,
+                       fit(shard.mesh, tuple(q.shape), spec))
 
 
 def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv_cache: dict | None = None,
                   use_kernel: bool = False,
-                  kv_source: torch.Tensor | None = None) -> torch.Tensor:
+                  kv_source: torch.Tensor | None = None,
+                  shard=NOSHARD) -> torch.Tensor:
     """Self-attention with an optional ring-buffer KV cache, or, with
     ``kv_source`` (B, Skv, d), attention of x's queries over keys and values
     projected from it: bidirectional (no mask), no RoPE, no cache, through
@@ -180,14 +203,16 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                    the kpos mask (full attention only);
       otherwise    ``sdpa`` over the cache with the kpos mask.
     Without a cache: causal attention, through the flash kernel when
-    ``use_kernel`` or ``cfg.use_kernels`` asks for it.
+    ``use_kernel`` or ``cfg.use_kernels`` asks for it.  Under a mesh the
+    attention runs on local heads (``on_heads``) and a cache is written
+    and read by ``sharded_cache_attention``.
     """
     b, s, _ = x.shape
     hd = cfg.hd
     src = x if kv_source is None else kv_source
-    q = (x @ p.wq).reshape(b, s, cfg.n_heads, hd)
-    k = (src @ p.wk).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = (src @ p.wv).reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    q = shard.heads(x @ p.wq, (b, s, cfg.n_heads, hd))
+    k = shard.heads(src @ p.wk, (b, src.shape[1], cfg.n_kv_heads, hd))
+    v = shard.heads(src @ p.wv, (b, src.shape[1], cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -201,9 +226,13 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         elif torch.is_grad_enabled():
             # training attends through sdpa, as the JAX package does at
             # every step: the flash kernel has no backward
-            out = sdpa(q, k, v, None)
+            out = on_heads(shard, lambda q, k, v: sdpa(q, k, v, None),
+                           q, k, v)
         else:
-            out = ops.flash_attention(q, k, v, causal=False)
+            out = on_heads(shard, lambda q, k, v: ops.flash_attention(
+                q, k, v, causal=False), q, k, v)
+    elif kv_cache is not None and shard.sharded:
+        out = sharded_cache_attention(cfg, q, k, v, kv_cache, shard)
     elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         kv_len = ck.shape[1]
@@ -238,11 +267,152 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     mask &= kpos > q_pos - cfg.swa_window
                 out = sdpa(q, ck, cv, mask)
     elif use_kernel or cfg.use_kernels:
-        out = ops.flash_attention(q, k, v, causal=True,
-                                  window=cfg.swa_window)
+        out = on_heads(shard, lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=True, window=cfg.swa_window), q, k, v)
     else:
-        out = sdpa(q, k, v, causal_mask(s, s, cfg.swa_window, 0, x.device))
+        out = on_heads(shard, lambda q, k, v: sdpa(
+            q, k, v, causal_mask(s, s, cfg.swa_window, 0, q.device)),
+            q, k, v)
     return out.reshape(b, s, cfg.n_heads * hd) @ p.wo
+
+
+# ----------------------------------------------------------------------
+# Attention over a sequence-sharded cache (under a mesh)
+# ----------------------------------------------------------------------
+
+def ring_write(buf: torch.Tensor, vals: torch.Tensor, pos: torch.Tensor,
+               kv_len: int, offset: int) -> torch.Tensor:
+    """Write a step's values into one rank's slice of a ring, in place.
+
+    buf (B, S_l, ...) holds the ring's slots offset .. offset + S_l - 1 of
+    kv_len; vals (B, s, ...) are positions pos .. pos + s - 1 (pos (B,)).
+    As ``transformer.ring_info`` writes them: slot = position % kv_len when
+    s < kv_len, else the slab's last kv_len tokens in slots 0 .. kv_len - 1.
+    One token (decode) is scattered to its slot on the rank that holds it
+    (the others write back what the slot held); a slab, each slot gathers
+    the token that lands on it.  No shape depends on the data, so the meta
+    device runs it too."""
+    bl, sl = buf.shape[:2]
+    s = vals.shape[1]
+    tail = (1,) * (vals.dim() - 2)
+    if s == 1 and kv_len > 1:
+        slot = pos.long() % kv_len - offset                        # (B,)
+        mine = (slot >= 0) & (slot < sl)
+        idx = torch.clamp(slot, 0, sl - 1).view(bl, 1, *tail).expand(
+            bl, 1, *vals.shape[2:])
+        old = torch.gather(buf, 1, idx)
+        new = torch.where(mine.view(bl, 1, *tail), vals.to(buf.dtype), old)
+        return buf.scatter_(1, idx, new)
+    j = torch.arange(offset, offset + sl, device=buf.device)
+    if s >= kv_len:
+        t = (j + (s - kv_len)).expand(bl, sl)
+        valid = torch.ones((bl, sl), dtype=torch.bool, device=buf.device)
+    else:
+        t = (j[None, :] - pos[:, None].long()) % kv_len
+        valid = t < s
+        t = torch.clamp(t, max=s - 1)
+    idx = t.view(bl, sl, *tail).expand(bl, sl, *vals.shape[2:])
+    new = torch.gather(vals.to(buf.dtype), 1, idx)
+    buf.copy_(torch.where(valid.view(bl, sl, *tail), new, buf))
+    return buf
+
+
+def cache_slice(shard, shape: tuple[int, ...]) -> tuple[P, int]:
+    """A cache tensor's (B, kv_len, ...) spec under ``shard`` and the first
+    slot of this rank's slice."""
+    spec = fit(shard.mesh, shape, (shard.batch_axes, "model")
+               + (None,) * (len(shape) - 2))
+    sl = shape[1] // axis_size(shard.mesh, spec[1])
+    return spec, (shard.axis_index("model") * sl if spec[1] else 0)
+
+
+def sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sdpa`` over a slice of the keys, unnormalised across slices: the
+    output (B, Sq, Hq, D) f32 of the slice and each row's log-sum-exp
+    (B, Sq, Hq) f32 (-inf, and a zero output, where the slice holds no key
+    of the row).  mask: (B, Sq, Skv)."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    logits = (logits / math.sqrt(d)).masked_fill(~mask[:, None, None],
+                                                  -math.inf)
+    lse = torch.logsumexp(logits, dim=-1)                   # (B,Hkv,G,Sq)
+    probs = torch.exp(logits - lse[..., None]).nan_to_num(0.0)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, hq, d), lse.permute(0, 3, 1, 2).reshape(
+        b, sq, hq)
+
+
+def merge_slices(shard, out: torch.Tensor, lse: torch.Tensor
+                 ) -> torch.Tensor:
+    """Merge each rank's (out (B, s, Hq, D), lse (B, s, Hq)) of its slice
+    of the keys over 'model': one all-reduce max of lse, one all-reduce sum
+    of the weighted outputs and weights.  f32."""
+    top = shard.reduce(lse, "max", "model")
+    w = torch.where(torch.isfinite(top), torch.exp(lse - top), 0.0)
+    packed = torch.cat([out.float() * w[..., None], w[..., None]], dim=-1)
+    packed = shard.reduce(packed, "sum", "model")
+    return packed[..., :-1] / packed[..., -1:].clamp(min=1e-30)
+
+
+def sharded_cache_attention(cfg: ModelConfig, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor,
+                            kv_cache: dict, shard) -> torch.Tensor:
+    """``attention_fwd``'s cache branch under a mesh.  The cache (B, kv_len,
+    Hkv, D) shards its sequence over 'model'; each rank writes the slots of
+    its slice (``ring_write``).  A slab that fills the ring, or a fresh
+    cache, attends in-slab on local heads (flash kernel).  Otherwise each
+    rank attends its slice of the cache -- the paged kernel with its
+    log-sum-exp on its local lengths clamp(pos + 1 - offset, 0, S_l), or the
+    kpos-masked softmax -- and the slices merge (``merge_slices``)."""
+    ck, cv = kv_cache["k"], kv_cache["v"]
+    b, s, hq, d = q.shape
+    kv_len = ck.shape[1]
+    ba = shard.batch_axes
+    cspec, offset = cache_slice(shard, tuple(ck.shape))
+    rows = (ba, None, None, None)
+    pos = kv_cache["q_pos"][:, 0]
+    for buf, new in ((ck, k), (cv, v)):
+        shard.local(lambda buf, new, pos: ring_write(buf, new, pos, kv_len,
+                                                     offset),
+                    (buf, new, pos), (cspec, rows, (ba,)), cspec)
+    if s >= kv_len or kv_cache["fresh"]:
+        return on_heads(shard, lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=True, window=cfg.swa_window), q, k, v)
+    page = kv_cache.get("page_size", 0)
+    sl = ck.shape[1] // axis_size(shard.mesh, cspec[1])
+    paged = s == 1 and page and sl % page == 0
+
+    def attend(q, ck, cv, kpos, q_pos):
+        bl = q.shape[0]
+        if paged:
+            lengths = torch.clamp(q_pos[:, 0] + 1, max=kv_len) - offset
+            lengths = torch.clamp(lengths, 0, sl).to(torch.int32)
+            view = (bl * sl // page, page) + tuple(ck.shape[2:])
+            table = torch.arange(bl * sl // page, dtype=torch.int32,
+                                 device=q.device).view(bl, sl // page)
+            o, lse = ops.paged_attention(q.reshape(bl, hq, d), ck.view(view),
+                                         cv.view(view), table, lengths,
+                                         return_lse=True)
+            o, lse = o[:, None], lse[:, None]
+        else:
+            kp = kpos[:, None, :]
+            qp = q_pos[:, :, None]
+            mask = (kp >= 0) & (kp <= qp)
+            if cfg.swa_window > 0:
+                mask &= kp > qp - cfg.swa_window
+            o, lse = sdpa_lse(q, ck, cv, mask)
+        return merge_slices(shard, o, lse).to(q.dtype)
+
+    kspec = cspec[:2]
+    return shard.local(attend, (q, ck, cv, kv_cache["kpos"],
+                                kv_cache["q_pos"]),
+                       (rows, cspec, cspec, kspec, (ba, None)),
+                       fit(shard.mesh, tuple(q.shape), rows))
 
 
 # ----------------------------------------------------------------------

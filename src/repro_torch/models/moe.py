@@ -16,6 +16,14 @@ rows only, so an expert that received no pair reads none of its weights;
 each token's k outputs are weighted by their gates (0 for a dropped pair)
 and summed in choice order, with no atomics.  Nothing is read back to the
 host.
+
+Under a mesh (``shard``, ``parallel.sharding.MeshRules``) the routed experts
+run on local shards (``moe_sharded``): each rank routes its own tokens'
+groups, fills the reference's (G, E, C, d) capacity layout (its
+``moe_inner`` constraint: groups over DP, experts over 'model') for its
+experts only, runs them as batched products and sums its choices; one
+all-reduce over 'model' adds the experts' shares.  Every shape is static
+there, so the meta device (the dry-run) runs it as well.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from torch import nn
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, dtype_of, mlp_fwd, weight
+from repro_torch.parallel.sharding import NOSHARD, P, _axes, axis_size, fit
 
 MOE_GROUP = 1024   # tokens per dispatch group (GShard/GLaM-style)
 
@@ -60,7 +69,7 @@ def _expert_swiglu(p: MoE, rows: torch.Tensor,
 
 
 def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
-            group_size: int = MOE_GROUP
+            group_size: int = MOE_GROUP, shard=NOSHARD
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
 
@@ -68,6 +77,8 @@ def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     each expert takes at most ``cap`` (token, choice) pairs of a group,
     counted in token-major, choice-minor order with the choices in
     descending gate order, and drops the rest."""
+    if shard.sharded:
+        return moe_sharded(p, cfg, x, group_size, shard)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -119,7 +130,7 @@ def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
 
 
 def moe_per_row(p: MoE, cfg: ModelConfig, x: torch.Tensor,
-                group_size: int = MOE_GROUP
+                group_size: int = MOE_GROUP, shard=NOSHARD
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``moe_fwd`` with each row of x (B, S, d) forming its own groups, as
     the JAX package's engine has it (it maps the one-sequence model over
@@ -131,5 +142,109 @@ def moe_per_row(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     n_g = -(-s // group)
     if n_g * group != s:
         x = F.pad(x, (0, 0, 0, n_g * group - s))
-    out, aux = moe_fwd(p, cfg, x.reshape(b * n_g, group, d), group)
+    rows = x.reshape(b * n_g, group, d)
+    if shard.sharded:
+        out, aux = moe_sharded(p, cfg, rows, group, shard)
+    else:
+        out, aux = moe_fwd(p, cfg, rows, group)
     return out.reshape(b, n_g * group, d)[:, :s], aux
+
+
+def _routed_local(x, router, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                  group: int, e0: int, first: bool):
+    """The routed experts e0 .. e0 + E_l - 1 (the local w_*) on local
+    tokens x (b, s, d), in the capacity layout.  Returns (this rank's share
+    of the output (b, s, d) f32 -- its experts' weighted choices --, the
+    top-1 counts (E,) and router probabilities summed over the rows (E,),
+    and the squared log-sum-exps summed (), all f32; zeros unless
+    ``first``, so that their sums over 'model' count one rank's)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    e_l = w_gate.shape[0]
+    n_g = -(-t // group)
+    xt = x.reshape(t, d)
+    if n_g * group != t:
+        xt = F.pad(xt, (0, 0, 0, n_g * group - t))
+    xg = xt.reshape(n_g, group, d)
+    logits = xg.float() @ router                              # (G, g, E)
+    probs = torch.softmax(logits, dim=-1)
+    top1 = F.one_hot(probs.argmax(dim=-1), e).float().sum(dim=(0, 1))
+    z = torch.logsumexp(logits, dim=-1).square().sum()
+    gate, idx = torch.topk(probs, k, dim=-1, sorted=True)     # (G, g, k)
+    gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
+    cap = int(max(k, round(group * cfg.capacity_factor * k / e)))
+    # a pair's slot in its expert: pairs before it in (token, choice) order
+    onehot = F.one_hot(idx.reshape(n_g, group * k), e)        # (G, gk, E)
+    slot = ((onehot.cumsum(dim=1) - onehot) * onehot).sum(dim=-1)
+    slot = slot.view(n_g, group * k)
+    pair_e = idx.view(n_g, group * k)
+    mine = (pair_e >= e0) & (pair_e < e0 + e_l) & (slot < cap)
+    dump = e_l * cap
+    dest = torch.where(mine, (pair_e - e0) * cap + slot, dump)
+    # dispatch: (G, E_l * C + 1, d), one row for the pairs this rank drops
+    src = xg.repeat_interleave(k, dim=1)                       # (G, gk, d)
+    buf = xg.new_zeros((n_g, dump + 1, d))
+    buf.scatter_(1, dest[..., None].expand(-1, -1, d), src)
+    expert_in = buf[:, :dump].view(n_g, e_l, cap, d)          # moe_inner
+    hg = F.silu(torch.einsum("gecd,edf->gecf", expert_in, w_gate).float())
+    hu = torch.einsum("gecd,edf->gecf", expert_in, w_up).float()
+    y = torch.einsum("gecf,efd->gecd", (hg * hu).to(x.dtype), w_down)
+    y = torch.cat([y.reshape(n_g, dump, d), y.new_zeros((n_g, 1, d))], 1)
+    pair_y = torch.gather(y, 1, dest[..., None].expand(-1, -1, d))
+    weights = torch.where(mine, gate.view(n_g, group * k), 0.0)
+    out = (pair_y.float().view(-1, k, d) * weights.view(-1, k, 1)).sum(1)
+    keep = 1.0 if first else 0.0
+    return (out[:t].view(b, s, d), top1 * keep,
+            probs.sum(dim=(0, 1)) * keep, z * keep)
+
+
+def moe_sharded(p: MoE, cfg: ModelConfig, x: torch.Tensor, group_size: int,
+                shard) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_fwd`` on DTensors: the routed experts on local shards
+    (``_routed_local``), the shared experts and the aux loss on DTensors.
+    Tokens stay on their DP shard when every shard holds whole groups, else
+    they are gathered (each rank then routes every group)."""
+    b, s, d = x.shape
+    t = b * s
+    e = cfg.n_experts
+    group = min(group_size, t)
+    mesh = shard.mesh
+    ba = shard.batch_axes
+    xspec = fit(mesh, (b, s, d), (ba, None, None))
+    if xspec[0] is not None and (t // axis_size(mesh, xspec[0])) % group:
+        xspec = fit(mesh, (b, s, d), (None, None, None))
+    wspec = fit(mesh, tuple(p.w_gate.shape), ("model", None, None))
+    e0 = shard.axis_index("model") * (e // axis_size(mesh, "model")) \
+        if wspec[0] else 0
+    batch = _axes(xspec[0])
+    # the output: rows over DP, the experts' shares summed over 'model';
+    # the routing sums: summed over DP, one rank's over 'model'
+    out_pl = shard.mixed(xspec, partial=("model",) if wspec[0] else ())
+    sum_pl = shard.mixed(P(None), partial=batch + ("model",))
+    n_rows = -(-t // group) * group
+    first = shard.axis_index("model") == 0
+
+    def routed(x, router, w_gate, w_up, w_down):
+        return _routed_local(x, router, w_gate, w_up, w_down, cfg=cfg,
+                             group=group, e0=e0, first=first)
+
+    # every rank's rows and experts give a partial gradient of the router
+    # and the experts (summed over DP; the router over 'model' too) and of
+    # x (over 'model', whose ranks hold different experts)
+    w_grad = shard.mixed(wspec, partial=batch)
+    out, top1, psum, z = shard.local(
+        routed, (x, p.router, p.w_gate, p.w_up, p.w_down),
+        (xspec, (None, None), wspec, wspec, wspec),
+        (out_pl, sum_pl, sum_pl, sum_pl),
+        grads=(shard.mixed(xspec, partial=("model",)),
+               shard.mixed(P(None, None), partial=batch + ("model",)),
+               w_grad, w_grad, w_grad))
+    aux = cfg.router_aux_coef * e * torch.sum((top1 / n_rows)
+                                              * (psum / n_rows))
+    aux = aux + cfg.router_z_coef * z / n_rows
+    # the experts' shares summed in f32, then the model dtype
+    out = shard.act(out, "act").to(x.dtype)
+    if p.shared is not None:
+        out = out + mlp_fwd(p.shared, x)
+    return out, aux

@@ -15,6 +15,10 @@ recurrence), each a Python loop over time with the step of the reference's
 ``lax.scan``, the states in f32 and the stabiliser ``m`` starting at -1e30;
 ``XLSTMPair`` is one (mLSTM, sLSTM) pair of the stack.  The mLSTM's head
 dimension is ``d_model // n_heads``, as in the reference.
+
+Under a mesh (``shard``) the SSD scan and the Mamba2 step run on each
+rank's local heads, and the xLSTM recurrences on each rank's local rows
+(``shard.local``); the projections around them run on DTensors.
 """
 
 from __future__ import annotations
@@ -28,6 +32,14 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import RMSNorm, dtype_of, weight
+from repro_torch.parallel.sharding import (
+    NOSHARD,
+    P,
+    _axes,
+    axis_size,
+    fit,
+    placements,
+)
 
 
 class Mamba2(nn.Module):
@@ -70,9 +82,14 @@ def _gate_and_project(p: Mamba2, cfg: ModelConfig, y: torch.Tensor,
     return y @ p.out_proj
 
 
+def _head_axis(shard, h: int):
+    """'model' when the heads divide it, else None (heads whole)."""
+    return "model" if h % axis_size(shard.mesh, "model") == 0 else None
+
+
 def mamba2_fwd(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-               state: torch.Tensor | None = None, chunk: int = 128
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               state: torch.Tensor | None = None, chunk: int = 128,
+               shard=NOSHARD) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence Mamba2 block.  u: (b, l, d) -> (y (b, l, d), final
     state (b, h, p, n) f32).  A ragged l is padded inside the scan with
     a = 0 and x = 0, as the reference pads it."""
@@ -83,16 +100,34 @@ def mamba2_fwd(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
     dt = F.softplus(dt.float() + p.dt_bias)                      # (b,l,h)
     A = -torch.exp(p.A_log)                                      # (h,)
     a = dt * A                                                   # (b,l,h)
-    xh = x.reshape(b, l, h, pdim).float() * dt[..., None]        # fold dt
-    y, final = ops.ssd_scan(xh.contiguous(), a, B.float().contiguous(),
-                            C.float().contiguous(), state, chunk)
+    xh = shard.heads(x, (b, l, h, pdim)).float() * dt[..., None]  # fold dt
+    Bf, Cf = B.float(), C.float()
+
+    def scan(xh, a, Bf, Cf, state):
+        return ops.ssd_scan(xh.contiguous(), a, Bf.contiguous(),
+                            Cf.contiguous(), state, chunk)
+
+    if shard.sharded:
+        ba, hx = shard.batch_axes, _head_axis(shard, h)
+        specs = ((ba, None, hx, None), (ba, None, hx), (ba, None, None),
+                 (ba, None, None), (ba, hx, None, None))
+        outs = (fit(shard.mesh, tuple(xh.shape), specs[0]),
+                fit(shard.mesh, (b, h, pdim, cfg.ssm_state), specs[4]))
+        # each rank's heads give a partial gradient of the shared B and C
+        bc = shard.mixed(fit(shard.mesh, tuple(Bf.shape), specs[2]),
+                         partial=(hx,) if hx else ())
+        y, final = shard.local(scan, (xh, a, Bf, Cf, state), specs, outs,
+                               grads=(None, None, bc, bc, None))
+    else:
+        y, final = scan(xh, a, Bf, Cf, state)
     y = y + xh * p.D[None, None, :, None]
     return _gate_and_project(p, cfg, y.reshape(b, l, cfg.d_inner), z,
                              u.dtype), final
 
 
 def mamba2_step(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-                state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                state: torch.Tensor, shard=NOSHARD
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """O(1) decode step.  u: (b, 1, d); state: (b, h, p, n) f32 ->
     (y (b, 1, d), new state)."""
     b = u.shape[0]
@@ -102,11 +137,24 @@ def mamba2_step(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
     dt = F.softplus(dt.float() + p.dt_bias)                      # (b,h)
     A = -torch.exp(p.A_log)
     da = torch.exp(dt * A)                                       # (b,h)
-    xh = x.reshape(b, h, pdim).float() * dt[..., None]
-    # s = s * da + x (x) B
-    new_state = (state * da[..., None, None]
-                 + torch.einsum("bhp,bn->bhpn", xh, B.float()))
-    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    xh = shard.heads(x, (b, h, pdim)).float() * dt[..., None]
+
+    def update(state, da, xh, Bf, Cf):
+        # s = s * da + x (x) B
+        new_state = (state * da[..., None, None]
+                     + torch.einsum("bhp,bn->bhpn", xh, Bf))
+        return new_state, torch.einsum("bhpn,bn->bhp", new_state, Cf)
+
+    if shard.sharded:
+        ba, hx = shard.batch_axes, _head_axis(shard, h)
+        specs = ((ba, hx, None, None), (ba, hx), (ba, hx, None),
+                 (ba, None), (ba, None))
+        outs = (fit(shard.mesh, tuple(state.shape), specs[0]),
+                fit(shard.mesh, tuple(xh.shape), specs[2]))
+        new_state, y = shard.local(update, (state, da, xh, B.float(),
+                                            C.float()), specs, outs)
+    else:
+        new_state, y = update(state, da, xh, B.float(), C.float())
     y = y + xh * p.D[None, :, None]
     out = _gate_and_project(p, cfg, y.reshape(b, cfg.d_inner), z, u.dtype)
     return out[:, None], new_state
@@ -121,20 +169,22 @@ class MambaLayer(nn.Module):
         self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, dtype_of(cfg), device)
         self.mamba = Mamba2(cfg, device)
 
-    def forward(self, x: torch.Tensor,
-                state: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, state: torch.Tensor | None = None,
+                shard=NOSHARD) -> torch.Tensor:
         """Without ``state``: the full sequence from a zero state.  With
         it: one token steps the state, a longer slab scans from it; either
         way the new state is written into ``state`` in place (the JAX
         package returns a new array)."""
         h = self.ln(x)
         if state is None:
-            y, _ = mamba2_fwd(self.mamba, self.cfg, h)
-            return x + y
-        step = mamba2_step if x.shape[1] == 1 else mamba2_fwd
-        y, new = step(self.mamba, self.cfg, h, state)
-        state.copy_(new)
-        return x + y
+            y, _ = mamba2_fwd(self.mamba, self.cfg, h, shard=shard)
+            return x + shard.act(y, "act")
+        if x.shape[1] == 1:
+            y, new = mamba2_step(self.mamba, self.cfg, h, state, shard)
+        else:
+            y, new = mamba2_fwd(self.mamba, self.cfg, h, state, shard=shard)
+        shard.write(state, new)
+        return x + shard.act(y, "act")
 
 
 
@@ -162,24 +212,49 @@ class MLSTM(nn.Module):
                                    requires_grad=False)
 
 
+def _rows(shard, fn, args, out_shapes):
+    """``fn(*args)`` on each rank's local rows (dim 0), every other dim
+    whole; out_shapes are the outputs' global shapes."""
+    if not shard.sharded:
+        return fn(*args)
+    ba = shard.batch_axes
+    specs = tuple(None if a is None else (ba,) + (None,) * (a.dim() - 1)
+                  for a in args)
+    outs = tuple(fit(shard.mesh, o, (ba,) + (None,) * (len(o) - 1))
+                 for o in out_shapes)
+    return shard.local(fn, args, specs, outs)
+
+
 def mlstm_fwd(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
-              state: tuple | None = None) -> tuple[torch.Tensor, tuple]:
+              state: tuple | None = None, shard=NOSHARD
+              ) -> tuple[torch.Tensor, tuple]:
     """x: (b, l, d) -> (out (b, l, d), (C (b,h,dh,dh), n (b,h,dh), m
     (b,h))), the stabilised recurrence one step per token."""
     b, l, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    q = (x @ p.wq).reshape(b, l, h, dh).float() / math.sqrt(dh)
-    k = (x @ p.wk).reshape(b, l, h, dh).float() / math.sqrt(dh)
-    v = (x @ p.wv).reshape(b, l, h, dh).float()
+    q = shard.heads(x @ p.wq, (b, l, h, dh)).float() / math.sqrt(dh)
+    k = shard.heads(x @ p.wk, (b, l, h, dh)).float() / math.sqrt(dh)
+    v = shard.heads(x @ p.wv, (b, l, h, dh)).float()
     i_pre = x.float() @ p.w_i
     f_pre = x.float() @ p.w_f + p.f_bias
-    if state is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((b, h, dh, dh), **f32),
-                 torch.zeros((b, h, dh), **f32),
-                 torch.full((b, h), -1e30, **f32))
-    C, n, m = state
+    shapes = ((b, l, h, dh), (b, h, dh, dh), (b, h, dh), (b, h))
+    hs, C, n, m = _rows(shard, _mlstm_scan,
+                        (q, k, v, i_pre, f_pre) + tuple(state or (None,) * 3),
+                        shapes)
+    gate = F.silu((x @ p.w_up).float())
+    out = (hs.reshape(b, l, d) * gate).to(x.dtype)
+    return out @ p.w_o, (C, n, m)
+
+
+def _mlstm_scan(q, k, v, i_pre, f_pre, C, n, m):
+    """The mLSTM recurrence: (hs (b, l, h, dh), C, n, m)."""
+    b, l, h, dh = q.shape
+    if C is None:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        C, n, m = (torch.zeros((b, h, dh, dh), **f32),
+                   torch.zeros((b, h, dh), **f32),
+                   torch.full((b, h), -1e30, **f32))
     hs = []
     for t in range(l):
         qt, kt, vt = q[:, t], k[:, t], v[:, t]                # (b,h,dh)
@@ -196,9 +271,7 @@ def mlstm_fwd(p: MLSTM, cfg: ModelConfig, x: torch.Tensor,
                             torch.exp(-m_new))[..., None]
         hs.append(num / den)
         m = m_new
-    gate = F.silu((x @ p.w_up).float())
-    out = (torch.stack(hs, dim=1).reshape(b, l, d) * gate).to(x.dtype)
-    return out @ p.w_o, (C, n, m)
+    return torch.stack(hs, dim=1), C, n, m
 
 
 class SLSTM(nn.Module):
@@ -219,23 +292,41 @@ class SLSTM(nn.Module):
 
 
 def slstm_fwd(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,
-              state: tuple | None = None) -> tuple[torch.Tensor, tuple]:
+              state: tuple | None = None, shard=NOSHARD
+              ) -> tuple[torch.Tensor, tuple]:
     """x: (b, l, d) -> (out (b, l, d), (c, n, h, m) each (b, d)), the
     scalar-memory recurrence one step per token."""
     b, l, d = x.shape
-    h = cfg.n_heads
-    dh = d // h
     pre_x = x.float() @ p.w_x + p.bias                        # (b,l,4d)
-    if state is None:
-        f32 = dict(dtype=torch.float32, device=x.device)
-        state = (torch.zeros((b, d), **f32), torch.zeros((b, d), **f32),
-                 torch.zeros((b, d), **f32),
-                 torch.full((b, d), -1e30, **f32))
-    c, n, hprev, m = state
+    r_h = p.r_h
+    if shard.sharded:
+        # the recurrent weights whole on every rank; each rank's rows give
+        # a partial gradient
+        rows = fit(shard.mesh, (b,), (shard.batch_axes,))[0]
+        whole = P(None, None, None)
+        r_h = r_h.redistribute(shard.mesh, placements(shard.mesh, whole))
+        r_h = r_h.to_local(grad_placements=shard.mixed(
+            whole, partial=_axes(rows)))
+    hs, *new = _rows(shard, lambda pre_x, *st: _slstm_scan(
+        pre_x, r_h, cfg.n_heads, *st),
+        (pre_x,) + tuple(state or (None,) * 4), ((b, l, d),) + ((b, d),) * 4)
+    out = hs.to(x.dtype) @ p.w_o
+    return out, tuple(new)
+
+
+def _slstm_scan(pre_x, r_h, h, c, n, hprev, m):
+    """The sLSTM recurrence: (hs (b, l, d), c, n, h, m)."""
+    b, l, d4 = pre_x.shape
+    d = d4 // 4
+    dh = d // h
+    if c is None:
+        f32 = dict(dtype=torch.float32, device=pre_x.device)
+        c, n, hprev = (torch.zeros((b, d), **f32) for _ in range(3))
+        m = torch.full((b, d), -1e30, **f32)
     hs = []
     for t in range(l):
         rec = torch.einsum("bhd,hde->bhe", hprev.reshape(b, h, dh),
-                           p.r_h).reshape(b, 4 * d)
+                           r_h).reshape(b, 4 * d)
         zt, it, ft, ot = (pre_x[:, t] + rec).chunk(4, dim=-1)
         zt = torch.tanh(zt)
         log_f = -F.softplus(-ft)
@@ -247,8 +338,7 @@ def slstm_fwd(p: SLSTM, cfg: ModelConfig, x: torch.Tensor,
         hprev = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(hprev)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ p.w_o
-    return out, (c, n, hprev, m)
+    return torch.stack(hs, dim=1), c, n, hprev, m
 
 
 MLSTM_STATE = ("mlstm_C", "mlstm_n", "mlstm_m")
@@ -268,8 +358,8 @@ class XLSTMPair(nn.Module):
         self.ln_s = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.slstm = SLSTM(cfg, device)
 
-    def forward(self, x: torch.Tensor,
-                states: dict | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, states: dict | None = None,
+                shard=NOSHARD) -> torch.Tensor:
         """Without ``states``: from zero states.  With them (this pair's
         ``MLSTM_STATE`` and ``SLSTM_STATE`` tensors, batch first): from
         them, and the new states are written into them in place (the JAX
@@ -278,10 +368,12 @@ class XLSTMPair(nn.Module):
         if states is not None:
             m_state = tuple(states[k] for k in MLSTM_STATE)
             s_state = tuple(states[k] for k in SLSTM_STATE)
-        y, new_m = mlstm_fwd(self.mlstm, self.cfg, self.ln_m(x), m_state)
-        x = x + y
-        y, new_s = slstm_fwd(self.slstm, self.cfg, self.ln_s(x), s_state)
+        y, new_m = mlstm_fwd(self.mlstm, self.cfg, self.ln_m(x), m_state,
+                             shard)
+        x = x + shard.act(y, "act")
+        y, new_s = slstm_fwd(self.slstm, self.cfg, self.ln_s(x), s_state,
+                             shard)
         if states is not None:
             for name, new in zip(MLSTM_STATE + SLSTM_STATE, new_m + new_s):
-                states[name].copy_(new)
-        return x + y
+                shard.write(states[name], new)
+        return x + shard.act(y, "act")

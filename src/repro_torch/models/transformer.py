@@ -19,10 +19,16 @@ summed aux and z losses (the float 0.0 for a stack without them).  Without
 a cache, while a gradient is recorded and ``cfg.remat`` is set, each layer
 (the hybrid's Mamba2 layers, each xLSTM pair) is recomputed in the backward
 (``remat``, the reference's ``_maybe_remat``).
+
+``Sharder`` is an optional activation-constraint hook (``shard``; see
+``parallel.sharding``) so the same code runs unsharded (``NOSHARD``, the
+plain ops) and fully sharded on DTensors (``MeshRules``): every stack calls
+``shard.act`` where the reference does, with the same kind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -30,21 +36,36 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, Attention, RMSNorm, dtype_of, weight
+from repro_torch.models.layers import (
+    MLP,
+    Attention,
+    RMSNorm,
+    cache_slice,
+    dtype_of,
+    ring_write,
+    weight,
+)
 from repro_torch.models.moe import MoE, moe_fwd, moe_per_row
 from repro_torch.models.ssm import MambaLayer, XLSTMPair
+from repro_torch.parallel.sharding import NOSHARD, NoSharder
 
 
 def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
               old_kpos: torch.Tensor, fresh: bool = False,
-              page_size: int = 0) -> tuple[dict, torch.Tensor]:
+              page_size: int = 0, shard=NOSHARD
+              ) -> tuple[dict, torch.Tensor]:
     """Ring-buffer bookkeeping shared by every attention layer of a step.
 
     pos: (B,) int32 next position per row; old_kpos: (B, max_seq) int32.
     ``page_size`` > 0 on a one-token step adds the cache viewed as pages of
-    that size: an identity block table and the per-row lengths."""
+    that size: an identity block table and the per-row lengths.  Under a
+    mesh ``kpos`` is written slice by slice (``layers.ring_write``) and the
+    pages are each rank's own (``layers.sharded_cache_attention``)."""
     q_pos = pos[:, None] + torch.arange(s_total, dtype=pos.dtype,
                                         device=pos.device)
+    if shard.sharded:
+        return _sharded_ring(pos, q_pos, max_seq, old_kpos, fresh,
+                             page_size, shard)
     if s_total >= max_seq:
         return {"q_pos": q_pos, "fresh": fresh}, q_pos[:, -max_seq:]
     slots = (q_pos % max_seq).long()
@@ -65,21 +86,42 @@ def ring_info(pos: torch.Tensor, s_total: int, max_seq: int,
     return ring, new_kpos
 
 
+def _sharded_ring(pos, q_pos, max_seq, old_kpos, fresh, page_size, shard):
+    kspec, offset = cache_slice(shard, tuple(old_kpos.shape))
+    new_kpos = shard.local(
+        lambda buf, vals, pos: ring_write(buf, vals, pos, max_seq, offset),
+        (old_kpos.clone(), q_pos, pos), (kspec, kspec[:1] + (None,),
+                                         kspec[:1]), kspec)
+    ring = {"kpos": new_kpos, "q_pos": q_pos, "fresh": fresh}
+    if page_size and q_pos.shape[1] == 1:
+        ring["page_size"] = page_size
+    return ring, new_kpos
+
+
 def remat(cfg: ModelConfig, layer: nn.Module, *args):
     """``layer(*args)``, its activations recomputed in the backward when
     ``cfg.remat`` asks for it and a gradient is being recorded."""
     if cfg.remat and torch.is_grad_enabled():
+        shard = next((a for a in args if isinstance(a, NoSharder)), NOSHARD)
+        if shard.sharded:   # the recomputation joins plain tensors too
+            return checkpoint(layer, *args, use_reentrant=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  shard.context()))
         return checkpoint(layer, *args, use_reentrant=False)
     return layer(*args)
 
 
 class DecoderLayer(nn.Module):
     """Pre-norm attention and SwiGLU MLP, or, for an MoE config, the
-    ``MoE`` layer (``moe``) in place of the MLP."""
+    ``MoE`` layer (``moe``) in place of the MLP.  ``ffn_in``: the MLP's input
+    takes the reference's ``ffn_in`` constraint (its decoder layers do, the
+    hybrid's shared block does not)."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 ffn_in: bool = True) -> None:
         super().__init__()
         self.cfg = cfg
+        self.ffn_in = ffn_in
         dt = dtype_of(cfg)
         self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.attn = Attention(cfg, device)
@@ -90,20 +132,23 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv_cache: dict | None = None
+                kv_cache: dict | None = None, shard=NOSHARD
                 ) -> tuple[torch.Tensor, torch.Tensor | float]:
         """Returns (x, aux): the MoE layer's aux and z losses (f32 scalar),
         or 0.0.  With a cache every row forms its own MoE groups, as the
         JAX package's engine decodes (one sequence per call, mapped over
         the slots); without one the rows' tokens are grouped together, as
         its ``decoder_fwd`` does."""
-        x = x + self.attn(self.ln1(x), positions, kv_cache)
+        x = x + shard.act(self.attn(self.ln1(x), positions, kv_cache,
+                                    shard=shard), "act")
         h = self.ln2(x)
         if not self.cfg.is_moe:
-            return x + self.mlp(h), 0.0
+            if self.ffn_in:
+                h = shard.act(h, "ffn_in")
+            return x + shard.act(self.mlp(h), "act"), 0.0
         moe = moe_fwd if kv_cache is None else moe_per_row
-        out, aux = moe(self.moe, self.cfg, h)
-        return x + out, aux
+        out, aux = moe(self.moe, self.cfg, h, shard=shard)
+        return x + shard.act(out, "act"), aux
 
 
 class Decoder(nn.Module):
@@ -127,7 +172,7 @@ class Decoder(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
                 last_only: bool = False, fresh: bool = False,
-                prefix_embeds: torch.Tensor | None = None
+                prefix_embeds: torch.Tensor | None = None, shard=NOSHARD
                 ) -> tuple[torch.Tensor, torch.Tensor | float, dict | None]:
         """Returns (logits, aux_loss, new_cache).
 
@@ -139,24 +184,25 @@ class Decoder(nn.Module):
         dtype); the positions, the ring and ``pos`` then cover F + S.
         """
         cfg = self.cfg
-        x = self.embed[tokens.long()]
+        x = shard.embed(self.embed, tokens)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+        x = shard.act(x, "act")
         aux = 0.0
         if cache is None:
-            positions = torch.arange(x.shape[1], device=x.device)
+            positions = shard.const(torch.arange(x.shape[1], device=x.device))
             for layer in self.layers:
-                x, a = remat(cfg, layer, x, positions)
+                x, a = remat(cfg, layer, x, positions, None, shard)
                 aux = aux + a
             new_cache = None
         else:
             pos = cache["pos"]
             page = cache["page_size"] if cfg.swa_window == 0 else 0
             ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
-                                       cache["kpos"], fresh, page)
+                                       cache["kpos"], fresh, page, shard)
             for l, layer in enumerate(self.layers):
                 kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
-                x, a = layer(x, ring["q_pos"], kv)
+                x, a = layer(x, ring["q_pos"], kv, shard)
                 aux = aux + a
             # advance by the full written slab
             new_cache = {"k": cache["k"], "v": cache["v"],
@@ -166,7 +212,7 @@ class Decoder(nn.Module):
             x = x[:, -1:]      # serving prefill: head for last token only
         x = self.ln_f(x)
         head = self.embed.t() if self.lm_head is None else self.lm_head
-        return x @ head.to(x.dtype), aux, new_cache
+        return shard.act(x @ head.to(x.dtype), "logits"), aux, new_cache
 
 
 class Hybrid(nn.Module):
@@ -188,14 +234,14 @@ class Hybrid(nn.Module):
             nn.ModuleList(MambaLayer(cfg, device)
                           for _ in range(cfg.attn_every))
             for _ in range(n_super))
-        self.shared = DecoderLayer(cfg, device)
+        self.shared = DecoderLayer(cfg, device, ffn_in=False)
         self.tail = nn.ModuleList(MambaLayer(cfg, device)
                                   for _ in range(n_tail))
         self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                last_only: bool = False, fresh: bool = False
+                last_only: bool = False, fresh: bool = False, shard=NOSHARD
                 ) -> tuple[torch.Tensor, float, dict | None]:
         """Returns (logits, 0.0, new_cache).
 
@@ -208,33 +254,33 @@ class Hybrid(nn.Module):
         cache is at position 0.
         """
         cfg = self.cfg
-        x = self.embed[tokens.long()]
+        x = shard.act(shard.embed(self.embed, tokens), "act")
         if cache is None:
-            positions = torch.arange(x.shape[1], device=x.device)
+            positions = shard.const(torch.arange(x.shape[1], device=x.device))
             for block in self.blocks:
                 for layer in block:
-                    x = remat(cfg, layer, x)
-                x, _ = self.shared(x, positions)
+                    x = remat(cfg, layer, x, None, shard)
+                x, _ = self.shared(x, positions, None, shard)
             for layer in self.tail:
-                x = remat(cfg, layer, x)
+                x = remat(cfg, layer, x, None, shard)
             new_cache = None
         else:
             pos = cache["pos"]
             page = cache["page_size"] if cfg.swa_window == 0 else 0
             ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
-                                       cache["kpos"], fresh, page)
+                                       cache["kpos"], fresh, page, shard)
             for i, block in enumerate(self.blocks):
                 for j, layer in enumerate(block):
-                    x = layer(x, cache["ssm"][i, j])
+                    x = layer(x, cache["ssm"][i, j], shard)
                 kv = {"k": cache["k"][i], "v": cache["v"][i], **ring}
-                x, _ = self.shared(x, ring["q_pos"], kv)
+                x, _ = self.shared(x, ring["q_pos"], kv, shard)
             for j, layer in enumerate(self.tail):
-                x = layer(x, cache["ssm_tail"][j])
+                x = layer(x, cache["ssm_tail"][j], shard)
             new_cache = dict(cache, pos=pos + x.shape[1], kpos=new_kpos)
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
         x = self.ln_f(x)
-        return x @ self.lm_head, 0.0, new_cache
+        return shard.act(x @ self.lm_head, "logits"), 0.0, new_cache
 
 
 class EncoderLayer(nn.Module):
@@ -248,11 +294,12 @@ class EncoderLayer(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                shard=NOSHARD) -> torch.Tensor:
         h = self.ln1(x)
-        x = x + self.attn(h, positions, kv_source=h)
-        return x + self.mlp(self.ln2(x))
+        x = x + shard.act(self.attn(h, positions, kv_source=h, shard=shard),
+                          "act")
+        return x + shard.act(self.mlp(self.ln2(x)), "act")
 
 
 class CrossDecoderLayer(nn.Module):
@@ -270,11 +317,13 @@ class CrossDecoderLayer(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: torch.Tensor, enc_out: torch.Tensor,
-                positions: torch.Tensor, kv_cache: dict | None = None
-                ) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), positions, kv_cache)
-        x = x + self.xattn(self.ln_x(x), positions, kv_source=enc_out)
-        return x + self.mlp(self.ln2(x))
+                positions: torch.Tensor, kv_cache: dict | None = None,
+                shard=NOSHARD) -> torch.Tensor:
+        x = x + shard.act(self.attn(self.ln1(x), positions, kv_cache,
+                                    shard=shard), "act")
+        x = x + shard.act(self.xattn(self.ln_x(x), positions,
+                                     kv_source=enc_out, shard=shard), "act")
+        return x + shard.act(self.mlp(self.ln2(x)), "act")
 
 
 class EncDec(nn.Module):
@@ -298,40 +347,43 @@ class EncDec(nn.Module):
         self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
 
-    def encode(self, src_embeds: torch.Tensor) -> torch.Tensor:
+    def encode(self, src_embeds: torch.Tensor,
+               shard=NOSHARD) -> torch.Tensor:
         """Frame embeddings (B, F, d) -> encoder output (B, F, d)."""
-        x = src_embeds.to(self.embed.dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
+        x = shard.act(src_embeds.to(self.embed.dtype), "act")
+        positions = shard.const(torch.arange(x.shape[1], device=x.device))
         for layer in self.encoder:
-            x = remat(self.cfg, layer, x, positions)
+            x = remat(self.cfg, layer, x, positions, shard)
         return self.ln_enc(x)
 
     def forward(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                 cache: dict | None = None, last_only: bool = False,
-                fresh: bool = False
+                fresh: bool = False, shard=NOSHARD
                 ) -> tuple[torch.Tensor, float, dict | None]:
         """Returns (logits, 0.0, new_cache); the cache is the decoder's, as
         ``Decoder.forward``'s (the caller keeps ``enc_out`` beside it)."""
-        x = self.embed[tokens.long()]
+        x = shard.act(shard.embed(self.embed, tokens), "act")
         if cache is None:
-            positions = torch.arange(x.shape[1], device=x.device)
+            positions = shard.const(torch.arange(x.shape[1], device=x.device))
             for layer in self.decoder:
-                x = remat(self.cfg, layer, x, enc_out, positions)
+                x = remat(self.cfg, layer, x, enc_out, positions, None,
+                          shard)
             new_cache = None
         else:
             pos = cache["pos"]
             ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
                                        cache["kpos"], fresh,
-                                       cache["page_size"])
+                                       cache["page_size"], shard)
             for l, layer in enumerate(self.decoder):
                 kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
-                x = layer(x, enc_out, ring["q_pos"], kv)
+                x = layer(x, enc_out, ring["q_pos"], kv, shard)
             new_cache = {"k": cache["k"], "v": cache["v"],
                          "pos": pos + x.shape[1], "kpos": new_kpos,
                          "page_size": cache["page_size"]}
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
-        return self.ln_f(x) @ self.lm_head, 0.0, new_cache
+        return shard.act(self.ln_f(x) @ self.lm_head, "logits"), 0.0, \
+            new_cache
 
 
 class XLSTM(nn.Module):
@@ -352,7 +404,7 @@ class XLSTM(nn.Module):
         self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
 
     def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                last_only: bool = False, fresh: bool = False
+                last_only: bool = False, fresh: bool = False, shard=NOSHARD
                 ) -> tuple[torch.Tensor, float, dict | None]:
         """Returns (logits, 0.0, new_cache).  cache: {"mlstm_C" (P, B, h, dh,
         dh), "mlstm_n" (P, B, h, dh), "mlstm_m" (P, B, h), "slstm_c"/"_n"/
@@ -360,18 +412,19 @@ class XLSTM(nn.Module):
         are written in place and the returned cache shares them.  Every
         row's recurrence starts from its own state, so ``fresh`` changes
         nothing."""
-        x = self.embed[tokens.long()]
+        x = shard.act(shard.embed(self.embed, tokens), "act")
         for i, pair in enumerate(self.pairs):
             if cache is None:
-                x = remat(self.cfg, pair, x)
+                x = remat(self.cfg, pair, x, None, shard)
             else:
                 x = pair(x, {k: v[i] for k, v in cache.items()
-                             if k != "pos"})
+                             if k != "pos"}, shard)
         new_cache = None if cache is None else dict(
             cache, pos=cache["pos"] + tokens.shape[1])
         if last_only:
             x = x[:, -1:]      # serving prefill: head for last token only
-        return self.ln_f(x) @ self.lm_head, 0.0, new_cache
+        return shard.act(self.ln_f(x) @ self.lm_head, "logits"), 0.0, \
+            new_cache
 
 
 def seeded_init(net: nn.Module, generator: torch.Generator) -> nn.Module:

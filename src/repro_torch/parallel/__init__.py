@@ -1,6 +1,6 @@
-"""Distribution substrate: gradient compression and accumulation.  The
-sharding rules and the pipeline schedule come with the port's distribution
-slice."""
+"""Distribution substrate: gradient compression and accumulation
+(``collectives``), the sharding rules on DeviceMesh and DTensor
+(``sharding``) and the GPipe schedule (``pipeline``)."""
 from repro_torch.parallel.collectives import (
     accumulate_grads,
     compress_with_feedback,

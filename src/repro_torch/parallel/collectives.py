@@ -26,9 +26,14 @@ def compress_with_feedback(grads: dict[str, torch.Tensor],
     return comp, err
 
 
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """f32 zeros placed as ``p`` (a DTensor's zeros are sharded as it)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
 def init_error_buf(params: dict[str, torch.Tensor]) -> dict:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    return {k: _zeros_f32(p) for k, p in params.items()}
 
 
 def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], microbatches,
@@ -40,8 +45,7 @@ def accumulate_grads(loss_fn, params: dict[str, torch.Tensor], microbatches,
     [f32], error buffer)."""
     n_micro = next(iter(microbatches.values())).shape[0]
     names = list(params)
-    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for k, p in params.items()}
+    acc = {k: _zeros_f32(p) for k, p in params.items()}
     if error_buf is None:
         error_buf = init_error_buf(params)
     loss_sum = None

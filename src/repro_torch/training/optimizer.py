@@ -9,7 +9,9 @@ more (the rank of the reference's layer-stacked leaf, which ``ranks`` gives;
 a stacked norm scale (L, d) is decayed, ``ln_f`` is not), and the result
 cast back to the parameter's dtype.  Unlike the reference it writes the
 parameters and the moments in place (no second copy of either), with
-``torch._foreach_*`` ops over all tensors at once.
+``torch._foreach_*`` ops over all tensors at once.  The moments take each
+parameter's placement (``zeros_like``): a DTensor parameter gets DTensor
+moments sharded as it is.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def adamw_init(params: dict[str, torch.Tensor]) -> dict:
     """m and v (f32 zeros shaped as each parameter) and the step (int32)."""
     dev = next(iter(params.values())).device
-    zeros = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros = {k: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for k, p in params.items()}
     return {"m": zeros,
             "v": {k: torch.zeros_like(z) for k, z in zeros.items()},

@@ -8,6 +8,13 @@ The model holds its parameters; the Trainer makes them trainable
 tree's leaves in its order (``bridge.to_jax_tree``): {"opt": {"error_buf"
 (with compression), "m", "step", "v"}, "params"}, so either package's
 Trainer resumes from the other's.
+
+The same Trainer drives one device and a mesh: under a Sharder
+(``shard``, ``parallel.sharding.MeshRules``) the parameters, the AdamW
+moments and the error buffer are DTensors placed by the rules, each
+microbatch is distributed over the batch axes, and a checkpoint holds the
+full tensors (rank 0 writes it), so that a sharded run, an unsharded one
+and the JAX package read each other's.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from repro_torch.core.sketch import EWMA
 from repro_torch.core.telemetry import TelemetryPlane
 from repro_torch.models.model import Model
 from repro_torch.parallel.collectives import accumulate_grads, init_error_buf
+from repro_torch.parallel.sharding import NOSHARD, distribute_model, full
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import (
     AdamWConfig,
@@ -51,12 +59,21 @@ def _nbytes(x) -> int:
     return int(np.asarray(x).nbytes)
 
 
+def _rank() -> int:
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 class Trainer:
-    def __init__(self, model: Model, tcfg: TrainConfig,
+    def __init__(self, model: Model, tcfg: TrainConfig, shard=None,
                  plane: TelemetryPlane | None = None) -> None:
         self.model = model
         self.tcfg = tcfg
         self.plane = plane
+        self.shard = shard or NOSHARD
+        if self.shard.sharded:
+            distribute_model(model, self.shard)
         self.params = dict(model.decoder.named_parameters())
         for p in self.params.values():
             p.requires_grad_(True)
@@ -72,16 +89,20 @@ class Trainer:
 
     # ------------------------------------------------------------------
 
+    def _loss(self, batch: dict) -> torch.Tensor:
+        return self.model.loss(batch, shard=self.shard)
+
     def _train_step(self, micro_batches: dict):
         ebuf = self.opt_state.get("error_buf")
-        loss, grads, new_ebuf = accumulate_grads(
-            self.model.loss, self.params, micro_batches,
-            compress=self.tcfg.compress_grads, error_buf=ebuf)
-        metrics = adamw_update(self.tcfg.optimizer, grads, self.opt_state,
-                               self.params, self.ranks)
+        with self.shard.context():
+            loss, grads, new_ebuf = accumulate_grads(
+                self._loss, self.params, micro_batches,
+                compress=self.tcfg.compress_grads, error_buf=ebuf)
+            metrics = adamw_update(self.tcfg.optimizer, grads,
+                                   self.opt_state, self.params, self.ranks)
         if ebuf is not None:
             self.opt_state["error_buf"] = new_ebuf
-        return loss, metrics
+        return full(loss), {k: full(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     # EngineControls (mitigation surface for training-side findings)
@@ -102,14 +123,18 @@ class Trainer:
                                      **kw))
 
     def _state_tree(self) -> dict:
-        """The checkpoint's tree: the JAX package's {"params", "opt"}."""
+        """The checkpoint's tree: the JAX package's {"params", "opt"}, of
+        full tensors (a collective under a mesh: every rank calls it)."""
         cfg = self.model.cfg
-        opt = {"m": to_jax_tree(cfg, self.opt_state["m"]),
-               "v": to_jax_tree(cfg, self.opt_state["v"]),
-               "step": self.opt_state["step"].cpu().numpy()}
+
+        def tree(named):
+            return to_jax_tree(cfg, {k: full(v) for k, v in named.items()})
+
+        opt = {"m": tree(self.opt_state["m"]), "v": tree(self.opt_state["v"]),
+               "step": full(self.opt_state["step"]).cpu().numpy()}
         if "error_buf" in self.opt_state:
-            opt["error_buf"] = to_jax_tree(cfg, self.opt_state["error_buf"])
-        return {"params": to_jax_tree(cfg, self.params), "opt": opt}
+            opt["error_buf"] = tree(self.opt_state["error_buf"])
+        return {"params": tree(self.params), "opt": opt}
 
     @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
@@ -119,8 +144,13 @@ class Trainer:
                     for k in ("m", "v", "error_buf") if k in self.opt_state]
         for named, sub in targets:
             for name, arr in from_jax_tree(cfg, sub).items():
-                named[name].copy_(torch.from_numpy(
-                    np.array(arr, np.float32)))
+                src = torch.from_numpy(np.array(arr, np.float32))
+                dst = named[name]
+                if self.shard.sharded:   # this rank's slice of the tensor
+                    src = self.shard.distribute(
+                        src.to(dst.dtype).to(dst.device_mesh.device_type),
+                        self.shard.param_specs({name: dst})[name])
+                dst.copy_(src)
         self.opt_state["step"].copy_(torch.as_tensor(
             np.asarray(tree["opt"]["step"])))
 
@@ -138,8 +168,12 @@ class Trainer:
 
     def save(self) -> None:
         if self.tcfg.ckpt_dir:
-            ckpt.save(self.tcfg.ckpt_dir, self.step, self._state_tree(),
-                      keep=self.tcfg.ckpt_keep)
+            tree = self._state_tree()
+            if _rank() == 0:
+                ckpt.save(self.tcfg.ckpt_dir, self.step, tree,
+                          keep=self.tcfg.ckpt_keep)
+            if self.shard.sharded:
+                torch.distributed.barrier()
 
     def run(self, batches, crash_at: int | None = None) -> list[dict]:
         """Train over an iterable of batches; ``crash_at`` injects a

@@ -9,6 +9,7 @@ on one package works alike on the other."""
 
 import dataclasses
 import importlib
+import os
 from pathlib import Path
 
 import pytest
@@ -61,7 +62,16 @@ def _fields(cls) -> list[tuple]:
 
 
 def _dataclasses(module: str) -> dict:
-    m = importlib.import_module(module)
+    # the reference's dry-run tools set XLA_FLAGS when imported (512 forced
+    # host devices); this process's JAX must keep seeing one device
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        m = importlib.import_module(module)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
     return {k: v for k, v in vars(m).items()
             if isinstance(v, type) and dataclasses.is_dataclass(v)
             and v.__module__ == module}

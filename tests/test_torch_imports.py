@@ -50,7 +50,8 @@ def test_the_port_has_modules_and_the_scan_sees_them():
                  "dpu/sidecar.py", "obs/trace.py", "serving/router.py",
                  "launch/serve.py", "sim/cluster.py", "lint/wiring.py",
                  "data/pipeline.py", "configs/llama3_2_3b.py",
-                 "models/moe.py"):
+                 "models/moe.py", "parallel/sharding.py",
+                 "launch/dryrun.py", "training/elastic.py"):
         assert want in names
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
