@@ -42,7 +42,7 @@ Phases, each printing one JSON line:
            and depth, bf16, seeded weights: qwen3-0.6b serving 16 requests,
            then zamba2-7b serving 8
   families the same for the MoE and xLSTM families: qwen2-moe-a2.7b
-           (full width, 12 of its 24 layers) serving 8 requests,
+           (full width, 6 of its 24 layers) serving 8 requests,
            xlstm-125m serving 8
   control  the DPU closed loop of examples/serve_with_dpu_telemetry.py at
            full width: qwen3-0.6b (bf16, seeded weights) from static
@@ -52,13 +52,26 @@ Phases, each printing one JSON line:
            dpu and instant control for the loop's host cost
   launch   python -m repro_torch.launch.serve on the card and with
            --device cpu: equal printed lines and reports
-  quickstart  examples/quickstart.py's whole pipeline with the port: full-
-           size llama3.2-3b (bf16, seeded weights) serves its ten requests
-           with telemetry, held to the same run on the CPU; tp_straggler
-           injected in the simulator, detected and attributed as the golden
-           fixture says; hot_replica's loop off and on; the smoke sweep's
-           gate and the golden fixture's smoke scenarios; the port's linter
-           clean (its first line gives numpy's version)
+  quickstart  examples/torch_quickstart.py's steps, through its functions:
+           full-size llama3.2-3b (bf16, seeded weights) serves its ten
+           requests with telemetry, held to the same run on the CPU;
+           tp_straggler injected in the simulator, detected and attributed
+           as the golden fixture says; hot_replica's loop off and on; the
+           smoke sweep (python -m repro_torch.sim.sweep --smoke in a child
+           process beside the card work) with its gate, its cells and the
+           golden fixture's smoke scenarios; the port's linter clean (its
+           first line gives numpy's version)
+  examples the four examples/torch_*.py as a user runs them, at their own
+           size, on the card (their default device) and with --device cpu:
+           the same printed lines (wall-clock lines by their form, losses
+           within 1e-3), the quickstart's and the serve example's exact
+           flash and paged launches, train_100m --full --steps 8 twice in
+           one checkpoint directory (the second run resumes, bit for bit),
+           and the drill-down on one row per runbook table, each detected
+           as the golden fixture says.  The simulator runs on the host
+           whatever the device: each distinct scenario runs once in the
+           process (the quickstart phase's and the golden check's runs
+           serve the examples)
   dist     the distribution layer (child processes: this process keeps no
            process group): full-size qwen3-0.6b trained through
            repro_torch.launch.train with --mesh 1,1 (MeshRules over a
@@ -703,12 +716,20 @@ def phase_kernels(torch, ops, timer) -> dict:
     # (G = 3), and decode over its 4 slots' 128-position ring in pages of 16
     flash.append(flash_case(torch, ops, timer, gen, b=1, s=64, hq=24, hkv=8,
                             d=128, window=0, dtype="bfloat16", time_it=True))
-    flash[-1]["model"] = QUICKSTART_ARCH
+    flash[-1]["model"] = "llama3.2-3b"
     llama_lens = sorted(rng.randrange(9, 43) for _ in range(4))
     paged.append(paged_case(torch, ops, timer, gen, b=4, page=16, per_seq=8,
                             hq=24, hkv=8, d=128, lengths=llama_lens,
                             permute=False, dtype="bfloat16", time_it=True))
-    paged[-1]["model"] = QUICKSTART_ARCH
+    paged[-1]["model"] = "llama3.2-3b"
+    # the examples' reduced llama3.2-3b and qwen3-0.6b (4/2 heads of 32,
+    # f32: the SIMT kernels): a prompt's 64-token bucket, and decode over 4
+    # slots' 128-position ring in pages of 16, full where the ring wraps
+    flash.append(flash_case(torch, ops, timer, gen, b=1, s=64, hq=4, hkv=2,
+                            d=32, window=0, dtype="float32", time_it=False))
+    paged.append(paged_case(torch, ops, timer, gen, b=4, page=16, per_seq=8,
+                            hq=4, hkv=2, d=32, lengths=[9, 40, 100, 128],
+                            permute=False, dtype="float32", time_it=False))
     # the SSD backward at zamba2-7b's shape: at the train case's 256 steps
     # (phase_train), then at the largest bucket with an initial state and
     # the final state's gradient, then without either, as training calls
@@ -1355,13 +1376,14 @@ def phase_serve(torch, ops) -> dict:
     return {"cases": [qwen, zamba]}
 
 
-MOE_SERVE_LAYERS = 12   # qwen2-moe-a2.7b's serve case: depth cut from 24
+MOE_SERVE_LAYERS = 6    # qwen2-moe-a2.7b's serve case: depth cut from 24
 
 
 def phase_families(torch, ops) -> dict:
     """The families beyond dense and hybrid at full width behind the
-    engine: qwen2-moe-a2.7b (MoE; 12 of its 24 layers, 7.3 B parameters:
-    drawing all 14.3 B on the host took ~120 s of the script's time limit)
+    engine: qwen2-moe-a2.7b (MoE; 6 of its 24 layers, 4.05 B parameters:
+    drawing all 14.3 B on the host took ~120 s of the script's time limit,
+    12 layers ~69 s)
     serving 8 requests over every prefill bucket, and xlstm-125m at full
     size serving 8 in the 64-256 buckets (its recurrences run a Python step
     per token and cell, so a long prefill is host-bound; its prefill is
@@ -1380,21 +1402,11 @@ def phase_families(torch, ops) -> dict:
 # ----------------------------------------------------------------------
 
 WALL_CLOCK = ("ns_per_event", "ns_per_event_by_detector")
-# examples/serve_with_dpu_telemetry.py's engine
+# examples/torch_serve_with_dpu_telemetry.py's engine; its workload is the
+# example's make_requests (16 requests at t=0 with 8-token prompts, 200 new
+# tokens for every fourth, over max_seq 128: the ring wraps, 4 for the rest)
 LOOP = dict(max_slots=4, max_seq=128, n_pages=256, telemetry=True,
             mitigate=True)
-
-
-def example_requests(vocab: int) -> list:
-    """The example's workload: 16 requests at t=0 with 8-token prompts, 200
-    new tokens for every fourth (over max_seq 128: the ring wraps) and 4
-    for the others."""
-    from repro_torch.serving import ServeRequest
-    rng = random.Random(7)
-    return [ServeRequest(req_id=i, arrival=0.0,
-                         prompt=[rng.randrange(vocab) for _ in range(8)],
-                         max_new_tokens=200 if i % 4 == 0 else 4)
-            for i in range(16)]
 
 
 def without_wall_clock(rep: dict) -> dict:
@@ -1414,7 +1426,7 @@ def loop_run(torch, model, observe: bool = False, **kw) -> dict:
     from repro_torch.serving import EngineConfig, InferenceEngine
     eng = InferenceEngine(model, EngineConfig(**{**LOOP, **kw}))
     eng.sched.set_continuous(False)
-    reqs = example_requests(model.cfg.vocab)
+    reqs = examples()["serve"].make_requests(model.cfg)
     spent = {"prefill": 0.0, "decode": 0.0, "flush": 0.0}
     calls = dict.fromkeys(spent, 0)
     eng._prefill = timed(eng._prefill, spent, calls, "prefill")
@@ -1514,7 +1526,7 @@ def phase_control(torch, ops) -> dict:
     out = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
            "engine": {**LOOP, "control": "dpu", "trace": True,
                       "static_batching": True},
-           "requests": len(example_requests(cfg.vocab)),
+           "requests": len(examples()["serve"].make_requests(cfg)),
            "completed": card["report"]["completed"], "prefills": prefills,
            "steps": steps, "static_steps_cpu": static["report"]["steps"],
            "tokens": card["report"]["tokens"], "launches": counts,
@@ -1582,12 +1594,9 @@ def phase_launch() -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 7: the quickstart's whole pipeline
+# phase 7: the quickstart's whole pipeline, through examples/torch_quickstart
 # ----------------------------------------------------------------------
 
-QUICKSTART_ARCH = "llama3.2-3b"
-# examples/quickstart.py's engine
-QUICKSTART_ENGINE = dict(max_slots=4, max_seq=128, n_pages=128, page_size=16)
 GOLDEN = ROOT / "tests" / "golden" / "scenario_findings.json"
 #: the golden fixture's seven metrics (tests/regen_golden.py)
 GOLDEN_METRICS = {
@@ -1595,26 +1604,51 @@ GOLDEN_METRICS = {
     "first_finding_ts": lambda m: m.first_finding_ts,
     "p50_latency": lambda m: m.p(0.5), "p99_latency": lambda m: m.p(0.99),
     "p50_ttft": lambda m: m.p_ttft(0.5), "p99_ttft": lambda m: m.p_ttft(0.99)}
+_EXAMPLES: dict = {}
 
 
-def quickstart_requests(vocab: int) -> list:
-    """The quickstart's ten requests: 8-31 prompt tokens drawn from the
-    whole vocabulary, 4-11 new tokens, one every 3 ms."""
-    from repro_torch.serving import ServeRequest
-    rng = random.Random(0)
-    return [ServeRequest(
-        req_id=i, arrival=i * 0.003,
-        prompt=[rng.randrange(vocab) for _ in range(rng.randrange(8, 32))],
-        max_new_tokens=rng.randrange(4, 12)) for i in range(10)]
+def examples() -> dict:
+    """examples/torch_*.py as modules, imported once.  The simulator runs
+    on the host whatever device an example names, and gives the same
+    result for the same arguments: so every run of it in this process
+    (the examples', the quickstart phase's steps and the golden fixture's
+    check) goes through one ``shared_run_scenario``, which runs each
+    distinct scenario once."""
+    if not _EXAMPLES:
+        import inspect
+
+        from repro_torch import sim
+        sys.path.insert(0, str(ROOT / "examples"))
+        import torch_pathology_drilldown
+        import torch_quickstart
+        import torch_serve_with_dpu_telemetry
+        import torch_train_100m
+        run, runs = sim.run_scenario, {}
+        sig = inspect.signature(run)
+
+        def shared_run_scenario(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            key = repr(bound.arguments)
+            if key not in runs:
+                runs[key] = run(*args, **kw)
+            return runs[key]
+        for mod in (torch_quickstart, torch_pathology_drilldown):
+            mod.run_scenario = shared_run_scenario
+        _EXAMPLES.update(
+            quickstart=torch_quickstart,
+            serve=torch_serve_with_dpu_telemetry, train=torch_train_100m,
+            drilldown=torch_pathology_drilldown,
+            run_scenario=shared_run_scenario, scenario_runs=runs)
+    return _EXAMPLES
 
 
 def quickstart_serve(torch, model) -> dict:
-    """Step 2: the ten requests through the quickstart's engine, with
-    telemetry and mitigation; every decode step and prefill timed on the
-    host clock, every model call's logits checked finite."""
-    from repro_torch.serving import EngineConfig, InferenceEngine
-    eng = InferenceEngine(model, EngineConfig(**QUICKSTART_ENGINE))
-    reqs = quickstart_requests(model.cfg.vocab)
+    """Step 2: ``torch_quickstart.serve`` on its engine (telemetry and
+    mitigation); every decode step and prefill timed on the host clock,
+    every model call's logits checked finite."""
+    tq = examples()["quickstart"]
+    eng = tq.engine(model)
     spent = {"prefill": 0.0, "decode": 0.0}
     calls = dict.fromkeys(spent, 0)
     finite = []
@@ -1623,21 +1657,24 @@ def quickstart_serve(torch, model) -> dict:
     model.prefill = checked(torch, model.prefill, finite)
     model.decode_step = checked(torch, model.decode_step, finite)
     t0 = time.perf_counter()
-    rep = eng.run(reqs)
+    rep = tq.serve(eng)
     wall = time.perf_counter() - t0
     del model.prefill, model.decode_step
     check(bool(torch.stack(finite).all()), f"quickstart on {model.device}: "
           "logits not finite")
     tel = rep["telemetry"]
-    check(rep["completed"] == len(reqs), f"quickstart on {model.device}: "
-          f"completed {rep['completed']} of {len(reqs)}")
+    n = len(tq.requests(model.cfg.vocab))
+    check(rep["completed"] == n, f"quickstart on {model.device}: "
+          f"completed {rep['completed']} of {n}")
     check(tel["findings"] == 0, f"quickstart on {model.device}: healthy "
           f"serve gave {tel['findings']} findings")
     prefills, steps = eng.stats["prefills"], rep["steps"]
     return {"report": without_wall_clock(rep), "prefills": prefills,
-            "steps": steps, "tokens": rep["tokens"],
+            "steps": steps, "tokens": rep["tokens"], "requests": n,
+            "engine": {k: getattr(eng.cfg, k) for k in (
+                "max_slots", "max_seq", "n_pages", "page_size")},
             "buckets": sorted({eng.sched.bucket_len(len(r.prompt))
-                               for r in reqs}),
+                               for r in tq.requests(model.cfg.vocab)}),
             "wall_s": wall,
             "ms_per_decode_step": spent["decode"] / steps * 1e3,
             "ms_per_prefill": spent["prefill"] / prefills * 1e3,
@@ -1651,13 +1688,13 @@ def golden_outcome(m, plane) -> dict:
 
 
 def quickstart_sim(golden: dict) -> dict:
-    """Steps 3 and 4 on the port's simulator: tp_straggler detected and
-    attributed as the golden fixture says, then hot_replica's loop off and
-    on (the mitigated run acts, lowers p99 and completes no fewer)."""
-    from repro_torch.sim import SCENARIOS, run_scenario
+    """Steps 3 and 4, ``torch_quickstart.pathology`` and ``hot_replica``:
+    tp_straggler detected and attributed as the golden fixture says, then
+    hot_replica's loop off and on (the mitigated run acts, lowers p99 and
+    completes no fewer)."""
+    tq = examples()["quickstart"]
     t0 = time.perf_counter()
-    sc = SCENARIOS["tp_straggler"]
-    m, plane, _ = run_scenario(sc.fault, sc.params, sc.workload)
+    sc, m, plane = tq.pathology()
     got = golden_outcome(m, plane)
     check(got == {k: golden["tp_straggler"][k] for k in got}, "tp_straggler: "
           "findings or metrics differ from the golden fixture")
@@ -1671,15 +1708,10 @@ def quickstart_sim(golden: dict) -> dict:
                  "detect_latency_s": m.first_finding_ts - sc.fault.start,
                  "seconds": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    sc = SCENARIOS["hot_replica"]
-    runs = {}
-    for mitigate in (False, True):
-        m, plane, _ = run_scenario(dataclasses.replace(sc.fault), sc.params,
-                                   sc.workload, mitigate=mitigate)
-        runs[mitigate] = {"actions": [a.action for a in plane.actions],
-                          "p99_latency": m.p(0.99),
-                          "completed": m.completed}
-    off, on = runs[False], runs[True]
+    _, off_m, on_m, on_plane = tq.hot_replica()
+    off = {"p99_latency": off_m.p(0.99), "completed": off_m.completed}
+    on = {"actions": [a.action for a in on_plane.actions],
+          "p99_latency": on_m.p(0.99), "completed": on_m.completed}
     check(len(on["actions"]) >= 1, "hot_replica: the mitigated run took no "
           "action")
     check(on["p99_latency"] < off["p99_latency"], f"hot_replica: p99 "
@@ -1691,57 +1723,84 @@ def quickstart_sim(golden: dict) -> dict:
                             "seconds": time.perf_counter() - t0}}
 
 
-def smoke_sweep(golden: dict) -> dict:
-    """Step 5: ``python -m repro_torch.sim.sweep --smoke``'s grid in this
-    process (one worker: a fork would copy the CUDA context) and its gate;
-    then each smoke scenario's findings and metrics against the golden
-    fixture, the cells' counts included."""
-    from repro_torch.sim import SCENARIOS, SweepConfig, run_scenario, run_sweep
+SWEEP_JSON = ROOT / "build" / "sweep_smoke.json"
+
+
+def start_smoke_sweep() -> subprocess.Popen:
+    """Step 5: ``python -m repro_torch.sim.sweep --smoke`` as a user runs
+    it, with 4 workers, in a child process (its workers fork, which this
+    process must not: it holds a CUDA context), started at once so that it
+    runs beside the phase's work on the card; it writes its cells to
+    ``SWEEP_JSON``."""
+    SWEEP_JSON.unlink(missing_ok=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.sim.sweep", "--smoke",
+         "--workers", "4", "--json", str(SWEEP_JSON)], cwd=ROOT,
+        env=src_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def smoke_sweep(sweep: subprocess.Popen, golden: dict) -> dict:
+    """Each smoke scenario's findings and metrics against the golden
+    fixture (in this process), then the sweep's gate (hit rate 1.0, no
+    false positive, one valid incident per fault cell, its exit code 0)
+    and each of its cells against the golden fixture, the counts
+    included."""
+    from repro_torch.sim import SCENARIOS
     from repro_torch.sim.sweep import SMOKE_SCENARIOS
+    run_scenario = examples()["run_scenario"]
     t0 = time.perf_counter()
-    report = run_sweep(SweepConfig(scenarios=SMOKE_SCENARIOS, seeds=(0,),
-                                   workers=1, trace=True))
-    sweep_s = time.perf_counter() - t0
-    problems = report.incident_problems()
-    check(report.hit_rate() == 1.0, f"smoke sweep: hit rate "
-          f"{report.hit_rate()}")
-    check(report.false_positives() == 0, f"smoke sweep: "
-          f"{report.false_positives()} false positives")
-    check(not problems, f"smoke sweep: incident problems {problems}")
+    for name in SMOKE_SCENARIOS:
+        sc = SCENARIOS[name]
+        m, plane, _ = run_scenario(sc.fault, sc.params, sc.workload)
+        check(golden_outcome(m, plane) == {k: golden[name][k] for k in (
+            "findings", "metrics")}, f"smoke scenario {name}: findings "
+            "or metrics differ from the golden fixture")
+    golden_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for r in report.results:
-        want = golden[r.scenario]
+    _, err = sweep.communicate(timeout=600)
+    wait_s = time.perf_counter() - t0
+    check(sweep.returncode == 0, f"smoke sweep exited {sweep.returncode}: "
+          f"{err[-3000:]}")
+    payload = json.loads(SWEEP_JSON.read_text())
+    summary, cells = payload["summary"], payload["cells"]
+    check(summary["hit_rate"] == 1.0, f"smoke sweep: hit rate "
+          f"{summary['hit_rate']}")
+    check(summary["healthy_false_positives"] == 0, f"smoke sweep: "
+          f"{summary['healthy_false_positives']} false positives")
+    check(not summary["incident_problems"], f"smoke sweep: incident "
+          f"problems {summary['incident_problems']}")
+    check([c["scenario"] for c in cells] == list(SMOKE_SCENARIOS),
+          f"smoke sweep: cells {[c['scenario'] for c in cells]}")
+    for c in cells:
+        want = golden[c["scenario"]]
         counts: dict[str, int] = {}
         for f in want["findings"]:
             counts[f[0]] = counts.get(f[0], 0) + 1
-        cell = {"findings": r.findings, "completed": r.completed,
-                "tokens_out": r.tokens_out, "p99_latency": r.p99_latency,
-                "p99_ttft": r.p99_ttft}
+        cell = {k: c[k] for k in ("findings", "completed", "tokens_out",
+                                  "p99_latency", "p99_ttft")}
         check(cell == {"findings": counts, **{
             k: want["metrics"][k] for k in cell if k != "findings"}},
-            f"smoke sweep: cell {r.scenario} differs from the golden fixture")
-        sc = SCENARIOS[r.scenario]
-        m, plane, _ = run_scenario(sc.fault, sc.params, sc.workload)
-        check(golden_outcome(m, plane) == {k: want[k] for k in (
-            "findings", "metrics")}, f"smoke scenario {r.scenario}: findings "
-            "or metrics differ from the golden fixture")
-    return {"scenarios": len(report.results), "hit_rate": report.hit_rate(),
-            "false_positives": report.false_positives(),
-            "incidents": sum(len(r.incidents) for r in report.results),
-            "events": report.events, "sweep_s": sweep_s,
-            "golden_s": time.perf_counter() - t0}
+            f"smoke sweep: cell {c['scenario']} differs from the golden "
+            "fixture")
+    return {"scenarios": len(cells), "hit_rate": summary["hit_rate"],
+            "false_positives": summary["healthy_false_positives"],
+            "incidents": summary["incidents"], "events": summary["events"],
+            "workers": summary["workers"], "sweep_s": summary["wall_s"],
+            "golden_s": golden_s, "wait_s": wait_s}
 
 
 def phase_quickstart(torch, ops) -> dict:
-    """examples/quickstart.py's four steps with the port, the model at full
-    size on the card, then the smoke sweep and the port's linter."""
+    """examples/torch_quickstart.py's four steps, the model at full size on
+    the card, then the smoke sweep and the port's linter."""
     import numpy
     from repro_torch.configs import ARCHS
     from repro_torch.lint import run_lint
     from repro_torch.models import build_model
     emit({"phase": "quickstart", "numpy": numpy.__version__,
           "started": True})
-    cfg = ARCHS[QUICKSTART_ARCH]
+    sweep = start_smoke_sweep()
+    cfg = ARCHS[examples()["quickstart"].ARCH]
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
@@ -1765,7 +1824,7 @@ def phase_quickstart(torch, ops) -> dict:
     torch.cuda.empty_cache()
     golden = json.loads(GOLDEN.read_text())["scenarios"]
     sim = quickstart_sim(golden)
-    sweep = smoke_sweep(golden)
+    sweep = smoke_sweep(sweep, golden)
     t0 = time.perf_counter()
     lint = run_lint(ROOT)
     check(not lint.unsuppressed, "repro_torch.lint: "
@@ -1775,8 +1834,8 @@ def phase_quickstart(torch, ops) -> dict:
             "layers": cfg.n_layers, "d_model": cfg.d_model,
             "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
             "vocab": cfg.vocab, "dtype": cfg.dtype, "params": params,
-            "init_s": init_s, "engine": QUICKSTART_ENGINE,
-            "requests": len(quickstart_requests(cfg.vocab)),
+            "init_s": init_s,
+            **{k: card[k] for k in ("engine", "requests")},
             "completed": rep["completed"],
             "tokens_per_step": rep["tokens_per_step"],
             "events": rep["telemetry"]["events"],
@@ -1789,6 +1848,194 @@ def phase_quickstart(torch, ops) -> dict:
             "lint": {"files": lint.files_scanned, "unsuppressed": 0,
                      "suppressed": len(lint.suppressed),
                      "seconds": time.perf_counter() - t0}}
+
+
+# ----------------------------------------------------------------------
+# phase 8: the four examples/torch_*.py as a user runs them
+# ----------------------------------------------------------------------
+
+#: one runbook row per table (3a, 3b, 3c, 3d, 3e, dpu, mon), as
+#: tests/torch_examples.py's DRILL_ROWS
+DRILL_ROWS = ("early_completion_skew", "decode_early_stop_skew",
+              "tp_straggler", "hierarchical_routing_skew",
+              "hbm_bandwidth_cliff", "dpu_saturation", "telemetry_blackout")
+TRAIN_FULL_ARGV = ["--full", "--steps", "8"]
+TRAIN_LOSS_TOL = 1e-3
+NO_LAUNCH = dict.fromkeys(REPLACES, 0)
+
+
+def example_run(torch, ops, main, argv: list[str]) -> dict:
+    """``main(argv)`` of an example, its printed lines captured and its
+    launches counted from 0."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    return {"lines": out.getvalue().splitlines(), "result": result,
+            "launches": ops.launch_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
+def card_and_cpu(torch, ops, main, name: str, argv: list[str],
+                 cpu_argv: list[str] | None = None) -> tuple[dict, dict]:
+    """An example on the card (its default device) with ``argv``, and with
+    ``cpu_argv`` (default: ``argv``) and ``--device cpu``; the CPU's run
+    launches no kernel."""
+    card = example_run(torch, ops, main, argv)
+    cpu = example_run(torch, ops, main,
+                      (argv if cpu_argv is None else cpu_argv)
+                      + ["--device", "cpu"])
+    check(cpu["launches"] == NO_LAUNCH, f"{name} on the CPU launched "
+          f"{cpu['launches']}")
+    return card, cpu
+
+
+def engine_launches(cfg, engines) -> dict[str, int]:
+    """The launches the engines' prefills and steps must make."""
+    out = dict(NO_LAUNCH)
+    for eng in engines:
+        for k, v in kernel_launches(cfg, eng.stats["prefills"],
+                                    eng.stats["steps"]).items():
+            out[k] += v
+    return out
+
+
+def examples_serving(torch, ops, name: str) -> dict:
+    """The quickstart or the serve example on the card and the CPU: the
+    same printed lines, the card's model on the card, exact launches."""
+    main = examples()[name].main
+    card, cpu = card_and_cpu(torch, ops, main, name, [])
+    check(card["lines"] == cpu["lines"], f"{name}: the card printed "
+          f"{card['lines']}, the CPU {cpu['lines']}")
+    engines = card["result"]
+    engines = engines if isinstance(engines, list) else [engines]
+    check(all(e.model.device.type == "cuda" for e in engines),
+          f"{name}: the default device is not the card")
+    want = engine_launches(engines[0].model.cfg, engines)
+    check(card["launches"] == want, f"{name}: launches "
+          f"{card['launches']}, want {want}")
+    return {"lines": card["lines"], "launches": card["launches"],
+            "prefills": sum(e.stats["prefills"] for e in engines),
+            "steps": [e.stats["steps"] for e in engines],
+            "seconds": card["seconds"], "cpu_seconds": cpu["seconds"]}
+
+
+def loss_line(hist: list[dict]) -> str:
+    return (f"step {hist[0]['step']}: loss {hist[0]['loss']:.3f}  ->  "
+            f"step {hist[-1]['step']}: loss {hist[-1]['loss']:.3f}")
+
+
+def examples_train(torch, ops) -> dict:
+    """torch_train_100m.py at its default size on the card and the CPU (the
+    same lines, the losses to 1e-3, the mean step time's form), then
+    ``--full --steps 8`` twice in one checkpoint directory: the second run
+    resumes with the first run's weights and moments, bit for bit."""
+    import shutil
+    main = examples()["train"].main
+    ckdir = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    dirs = {d: str(ckdir / d) for d in ("cuda", "cpu", "full")}
+    card, cpu = card_and_cpu(torch, ops, main, "train_100m",
+                             ["--ckpt", dirs["cuda"]],
+                             ["--ckpt", dirs["cpu"]])
+    hist = {d: r["result"].history for d, r in (("cuda", card),
+                                                ("cpu", cpu))}
+    losses = {d: [h["loss"] for h in hs] for d, hs in hist.items()}
+    check(card["result"].model.device.type == "cuda",
+          "train_100m: the default device is not the card")
+    check(card["launches"] == NO_LAUNCH, f"train_100m launched "
+          f"{card['launches']}: training attends through sdpa")
+    check(len(losses["cuda"]) == len(losses["cpu"]) == 40,
+          f"train_100m: {len(losses['cuda'])} steps on the card, "
+          f"{len(losses['cpu'])} on the CPU")
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(
+        losses["cuda"], losses["cpu"]))
+    check(loss_err <= TRAIN_LOSS_TOL, f"train_100m: losses differ by "
+          f"{loss_err} between the card and the CPU")
+    mean = re.compile(r"mean step time \d+\.\d{3}s, checkpoints in (.*)")
+    for d, r in (("cuda", card), ("cpu", cpu)):
+        lines = r["lines"]
+        check(len(lines) == 3 and lines[0] == card["lines"][0]
+              and lines[1] == loss_line(hist[d])
+              and mean.fullmatch(lines[2])
+              and mean.fullmatch(lines[2])[1] == dirs[d],
+              f"train_100m on {d} printed {lines}")
+    first = example_run(torch, ops, main,
+                        TRAIN_FULL_ARGV + ["--ckpt", dirs["full"]])
+    again = example_run(torch, ops, main,
+                        TRAIN_FULL_ARGV + ["--ckpt", dirs["full"]])
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tr, tr2 = first["result"], again["result"]
+    full = [h["loss"] for h in tr.history]
+    check(len(full) == 8 and all(map(math.isfinite, full))
+          and full[-1] < full[0], f"train_100m --full: losses {full}")
+    check(first["launches"] == again["launches"] == NO_LAUNCH,
+          "train_100m --full launched a kernel")
+    check(again["lines"] == [first["lines"][0],
+                             "resumed from checkpoint at step 8"],
+          f"train_100m --full again printed {again['lines']}")
+    same = all(torch.equal(tr.params[k], tr2.params[k]) for k in tr.params)
+    same &= all(torch.equal(tr.opt_state[m][k], tr2.opt_state[m][k])
+                for m in ("m", "v", "error_buf") for k in tr.params)
+    check(same and int(tr2.opt_state["step"]) == 8, "train_100m --full: "
+          "the resumed state differs from the saved one")
+    sec = sorted(h["sec"] for h in tr.history[1:])
+    return {"lines": card["lines"], "losses": losses["cuda"],
+            "loss_err": loss_err, "seconds": card["seconds"],
+            "cpu_seconds": cpu["seconds"],
+            "full": {"argv": TRAIN_FULL_ARGV, "lines": first["lines"],
+                     "resumed": again["lines"], "losses": full,
+                     "params": sum(p.numel() for p in tr.params.values()),
+                     "ms_per_step_median": sec[len(sec) // 2] * 1e3,
+                     "seconds": first["seconds"],
+                     "resume_seconds": again["seconds"]}}
+
+
+def examples_drilldown(torch, ops) -> dict:
+    """torch_pathology_drilldown.py on one row per runbook table, on the
+    card and with --device cpu: the same lines, the row's detector fires,
+    and its first finding is the golden fixture's."""
+    main = examples()["drilldown"].main
+    from repro_torch.core.runbooks import BY_ID
+    golden = json.loads(GOLDEN.read_text())["scenarios"]
+    out = {"rows": {}, "seconds": 0.0, "cpu_seconds": 0.0}
+    for row in DRILL_ROWS:
+        card, cpu = card_and_cpu(torch, ops, main, row, [row])
+        check(card["lines"] == cpu["lines"], f"drill-down {row}: the card "
+              f"printed {card['lines']}, the CPU {cpu['lines']}")
+        check(card["launches"] == NO_LAUNCH, f"drill-down {row} launched "
+              f"{card['launches']}")
+        _, node, ts, severity, score = next(
+            f for f in golden[BY_ID[row].scenario]["findings"]
+            if f[0] == row)
+        want = (f"detected   : t={ts:.2f}s severity={severity} "
+                f"node={node} score={score:.1f}")
+        check(want in card["lines"] and not any(
+            "did not fire" in ln for ln in card["lines"]),
+            f"drill-down {row}: printed {card['lines']}, want {want!r}")
+        out["rows"][row] = {"table": BY_ID[row].table, "detected": want,
+                            "seconds": card["seconds"]}
+        out["seconds"] += card["seconds"]
+        out["cpu_seconds"] += cpu["seconds"]
+    return out
+
+
+def phase_examples(torch, ops) -> dict:
+    """The four examples' ``main`` as a user runs them, on the card (their
+    default device) and with --device cpu in this process."""
+    quick = examples_serving(torch, ops, "quickstart")
+    serve = examples_serving(torch, ops, "serve")
+    launches = {k: quick["launches"][k] + serve["launches"][k]
+                for k in REPLACES}
+    return {"quickstart": quick, "serve_with_dpu_telemetry": serve,
+            "train_100m": examples_train(torch, ops),
+            "pathology_drilldown": examples_drilldown(torch, ops),
+            "launches": launches,
+            "scenario_runs": len(examples()["scenario_runs"])}
 
 
 # ----------------------------------------------------------------------
@@ -2034,7 +2281,7 @@ def phase_dist(torch, ops, timer, kern: dict | None) -> dict:
 
 
 PHASES = ("kernels", "path", "train", "serve", "families", "control",
-          "launch", "quickstart", "dist")
+          "launch", "quickstart", "examples", "dist")
 
 
 def main() -> int:
@@ -2120,6 +2367,11 @@ def main() -> int:
         quick = phase_quickstart(torch, ops)
         emit({"phase": "quickstart", "gpu": smi,
               "seconds": time.perf_counter() - t0, **quick})
+    if "examples" in phases:
+        t0 = time.perf_counter()
+        exa = phase_examples(torch, ops)
+        emit({"phase": "examples", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **exa})
     if "dist" in phases:
         t0 = time.perf_counter()
         dist = phase_dist(torch, ops, Timer(torch),
@@ -2133,10 +2385,10 @@ def main() -> int:
         return 0
 
     # launches on the main paths: each kernel's count summed over the
-    # serve and families cases, the control loop, the quickstart's serve
-    # and the training runs (each run's counts were set to 0 just before
-    # it)
-    runs = (serve["cases"] + families["cases"] + [control, quick]
+    # serve and families cases, the control loop, the quickstart's serve,
+    # the examples and the training runs (each run's counts were set to 0
+    # just before it)
+    runs = (serve["cases"] + families["cases"] + [control, quick, exa]
             + train["cases"] + [train["full"], dist["serve"]])
     launches = {name: sum(c["launches"][name] for c in runs)
                 for name in REPLACES}

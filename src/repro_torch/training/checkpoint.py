@@ -6,7 +6,16 @@ and an index.json manifest of each leaf's "/"-joined key, file, shape and
 dtype; written to a .tmp dir then renamed (atomic on POSIX), so a crash
 mid-write never corrupts the latest checkpoint.  ``latest_step`` and
 ``restore`` give checkpoint/restart; old steps are collected, keeping the
-newest K.  Either package's ``restore`` reads the other's checkpoints.
+newest K.
+
+Across the packages: the port writes every leaf as numpy holds it, a
+bfloat16 tensor as its exact f32 value (``bridge.to_jax_tree``; the JAX
+package cannot load a 2-byte void leaf), so the JAX package's ``restore``
+reads the port's checkpoints, with f32 leaves where the model is bf16.
+The JAX package writes a bfloat16 leaf as its raw bits (``.npy`` type
+``|V2``, manifest dtype ``"bfloat16"``); the port's ``restore`` reads
+those bits back as the exact f32 values, and f32 and integer leaves as
+they are.
 """
 
 from __future__ import annotations
@@ -69,14 +78,23 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _load(path: str, leaf: dict) -> np.ndarray:
+    """One leaf; a bfloat16 leaf saved as raw 2-byte words widened to the
+    f32 of the same value (bf16 is the top half of an f32: exact)."""
+    arr = np.load(os.path.join(path, leaf["file"]))
+    if leaf["dtype"] == "bfloat16" and arr.dtype.kind == "V" \
+            and arr.dtype.itemsize == 2:
+        arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return arr
+
+
 def restore(ckpt_dir: str, step: int, like_tree):
     """The checkpoint's arrays in the structure of ``like_tree`` (a nested
     dict whose leaves are only counted and placed)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "index.json")) as f:
         manifest = json.load(f)
-    arrays = [np.load(os.path.join(path, leaf["file"]))
-              for leaf in manifest["leaves"]]
+    arrays = [_load(path, leaf) for leaf in manifest["leaves"]]
     keys = [key for key, _ in _flatten(like_tree)]
     if len(keys) != len(arrays):
         raise ValueError(f"checkpoint {path} has {len(arrays)} leaves, the "

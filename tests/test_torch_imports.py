@@ -1,7 +1,7 @@
-"""Import hygiene of the PyTorch port: no module of src/repro_torch, and not
-chip_smoke.py, imports JAX or the JAX package (the machine with the card has
-no JAX), and the kernel entry points catch nothing around a launch (no
-silent fallback to the plain versions)."""
+"""Import hygiene of the PyTorch port: no module of src/repro_torch, not
+chip_smoke.py and no examples/torch_*.py imports JAX or the JAX package
+(the machine with the card has no JAX), and the kernel entry points catch
+nothing around a launch (no silent fallback to the plain versions)."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-MODULES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -53,6 +54,9 @@ def test_the_port_has_modules_and_the_scan_sees_them():
                  "models/moe.py", "parallel/sharding.py",
                  "launch/dryrun.py", "training/elastic.py"):
         assert want in names
+    assert {p.name for p in MODULES if p.parent.name == "examples"} == {
+        "torch_quickstart.py", "torch_serve_with_dpu_telemetry.py",
+        "torch_train_100m.py", "torch_pathology_drilldown.py"}
     assert _forbidden("repro.core") and _forbidden("jax.numpy")
     assert not _forbidden("repro_torch.core")
 
