@@ -3,7 +3,9 @@
 Everything in this package is strictly *observe-only*: attaching a
 :class:`~repro_torch.obs.trace.Tracer` to the control loop draws no randomness,
 mutates no events, and changes no decision — goldens are bit-identical
-with tracing on or off (enforced by ``tests/test_obs.py``).
+with tracing on or off (enforced by ``tests/test_obs.py``).  The serving
+engine's host-clock spans (:mod:`repro_torch.obs.hostspans`) are
+observe-only too, and always on.
 """
 
 from repro_torch.obs.trace import (  # noqa: F401
@@ -19,4 +21,10 @@ from repro_torch.obs.metrics import (  # noqa: F401
     Histogram,
     MetricsRegistry,
     collect_metrics,
+)
+from repro_torch.obs.hostspans import (  # noqa: F401
+    HOST_SPANS,
+    HostSpan,
+    HostSpans,
+    to_profiler_ns,
 )

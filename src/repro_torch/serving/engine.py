@@ -19,6 +19,7 @@ so the reports and event batches of the two engines are equal.
 
 from __future__ import annotations
 
+from collections.abc import Iterable
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,7 +35,7 @@ from repro_torch.core.telemetry import TelemetryPlane
 from repro_torch.dpu import DPUParams, DPUSidecar
 from repro_torch.models import Model
 from repro_torch.models.model import CACHE_BATCH_AXIS
-from repro_torch.obs import FlightRecorder, Tracer
+from repro_torch.obs import HOST_SPANS, FlightRecorder, Tracer
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.scheduler import (
     Scheduler,
@@ -123,6 +124,8 @@ class InferenceEngine:
         # to the plane (the engine feeds the same line-rate path as the sim)
         self._pending = EventBatchBuilder()
         self._slot_next_token: dict[int, int] = {}
+        # host-clock span of each request waiting in the queue, by id
+        self._queued: dict[int, tuple] = {}
 
     # ------------------------------------------------------------------
     # EngineControls (mitigation actuation surface)
@@ -165,6 +168,8 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def submit(self, req: ServeRequest) -> None:
+        self._queued[req.req_id] = HOST_SPANS.begin(
+            "request.queue", req.req_id, self.cfg.node)
         self.sched.submit(req)
         self._emit(EventKind.INGRESS_PKT, flow=req.req_id,
                    size=2 * req.prompt_len, meta=META_DIR_INGRESS)
@@ -175,34 +180,47 @@ class InferenceEngine:
                               node=self.cfg.node, **kw)
 
     def _flush_telemetry(self) -> None:
-        if self.plane is None:
-            return
-        if len(self._pending):
-            batch = self._pending.build(sort=True)
-            self._pending.clear()
-            self._sink.observe_batch(batch)
-        if self.dpu is not None:
-            self.dpu.advance(self.clock)
+        span = HOST_SPANS.open("engine.flush", -1, self.cfg.node)
+        try:
+            if self.plane is None:
+                return
+            if len(self._pending):
+                batch = self._pending.build(sort=True)
+                self._pending.clear()
+                self._sink.observe_batch(batch)
+            if self.dpu is not None:
+                self.dpu.advance(self.clock)
+        finally:
+            HOST_SPANS.close(span)
 
     def _admit_loop(self) -> None:
-        while True:
-            if not self.sched.queue:
-                break
-            head = self.sched.queue[0]
-            need = head.prompt_len + head.max_new_tokens
-            if not self.pool.can_admit(need):
-                # paper section 5: early KV eviction under pressure
-                if self.pool.evict_lru() is None:
+        span = HOST_SPANS.open("engine.admit", -1, self.cfg.node)
+        try:
+            while True:
+                if not self.sched.queue:
                     break
-                continue
-            got = self.sched.admit(self.clock)
-            if got is None:
-                break
-            slot, req = got
-            self.pool.allocate(req.req_id, need)
-            self._prefill(slot, req)
+                head = self.sched.queue[0]
+                need = head.prompt_len + head.max_new_tokens
+                if not self.pool.can_admit(need):
+                    # paper section 5: early KV eviction under pressure
+                    if self.pool.evict_lru() is None:
+                        break
+                    continue
+                got = self.sched.admit(self.clock)
+                if got is None:
+                    break
+                slot, req = got
+                queued = self._queued.pop(req.req_id, None)
+                if queued is not None:
+                    HOST_SPANS.end(queued)
+                self.pool.allocate(req.req_id, need)
+                self._prefill(slot, req)
+        finally:
+            HOST_SPANS.close(span)
 
     def _prefill(self, slot: int, req: ServeRequest) -> None:
+        spans, node = HOST_SPANS, self.cfg.node
+        span = spans.open("engine.prefill", req.req_id, node)
         bucket = self.sched.bucket_len(req.prompt_len)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, -req.prompt_len:] = req.prompt    # left-pad into bucket
@@ -212,8 +230,10 @@ class InferenceEngine:
         fresh = self.model.init_cache(1, self.cfg.max_seq,
                                       self.cfg.page_size)
         self._emit(EventKind.DISPATCH, device=slot % 4)
-        logits, cache = self.model.prefill(
-            torch.from_numpy(toks).to(self.model.device), fresh)
+        feed = torch.from_numpy(toks).to(self.model.device)
+        enqueue = spans.open("prefill.enqueue", req.req_id, node)
+        logits, cache = self.model.prefill(feed, fresh)
+        spans.close(enqueue)
         # first-token logits return to the host (pairs with the dispatch)
         self._emit(EventKind.D2H_XFER, device=slot % 4,
                    size=int(logits.numel() * 4), flow=req.req_id)
@@ -222,11 +242,14 @@ class InferenceEngine:
             if key in cache:
                 self.slot_cache[key].select(axis, slot).copy_(
                     cache[key].select(axis, 0))
+        wait = spans.open("prefill.wait", req.req_id, node)
         nxt = int(torch.argmax(logits[0, -1]))
+        spans.close(wait)
         req.tokens_out = 0
         req.first_token = -1.0
         self._slot_next_token[slot] = nxt
         self.stats["prefills"] += 1
+        spans.close(span)
 
     # ------------------------------------------------------------------
     # decode loop
@@ -239,36 +262,62 @@ class InferenceEngine:
         pending = sorted(requests, key=lambda r: r.arrival)
         i = 0
         for step in range(max_steps):
-            self.clock += step_time
-            while i < len(pending) and pending[i].arrival <= self.clock:
-                self.submit(pending[i])
+            now = self.clock + step_time
+            due = []
+            while i < len(pending) and pending[i].arrival <= now:
+                due.append(pending[i])
                 i += 1
-            self._emit(EventKind.QUEUE_SAMPLE,
-                       depth=self.sched.queue_depth(),
-                       meta=META_DIR_INGRESS)
-            self._admit_loop()
-            if self.sched.running:
-                self._step()
-            self._flush_telemetry()
+            self.iterate(due, step_time)
             if i >= len(pending) and not self.sched.running \
                     and not self.sched.queue:
                 break
         return self.report()
 
+    def iterate(self, arrivals: Iterable[ServeRequest] = (),
+                step_time: float = 2e-3) -> None:
+        """One iteration of ``run``: advance the clock by ``step_time``,
+        submit ``arrivals``, sample the queue, admit (and prefill), decode
+        every slot if any runs, and hand the step's events to the sink."""
+        self.clock += step_time
+        for req in arrivals:
+            self.submit(req)
+        self._emit(EventKind.QUEUE_SAMPLE,
+                   depth=self.sched.queue_depth(),
+                   meta=META_DIR_INGRESS)
+        self._admit_loop()
+        if self.sched.running:
+            self._step()
+        self._flush_telemetry()
+
     def _step(self) -> None:
-        slots = sorted(self.sched.running)
-        toks = np.zeros((self.cfg.max_slots, 1), np.int32)
-        for s in slots:
-            toks[s, 0] = self._slot_next_token.get(s, 0)
-        self._emit(EventKind.DISPATCH, device=0)
-        # every slot decodes, idle ones included, as in the JAX package
-        logits, self.slot_cache = self.model.decode_step(
-            torch.from_numpy(toks).to(self.model.device), self.slot_cache)
-        self._emit(EventKind.D2H_XFER, device=0,
-                   size=len(slots) * 4)
-        self.stats["steps"] += 1
-        # greedy argmax on the device; one copy to the host per step
-        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        spans, node = HOST_SPANS, self.cfg.node
+        span = spans.open("engine.step", -1, node)
+        try:
+            slots = sorted(self.sched.running)
+            toks = np.zeros((self.cfg.max_slots, 1), np.int32)
+            for s in slots:
+                toks[s, 0] = self._slot_next_token.get(s, 0)
+            self._emit(EventKind.DISPATCH, device=0)
+            feed = torch.from_numpy(toks).to(self.model.device)
+            # every slot decodes, idle ones included, as in the JAX package
+            enqueue = spans.open("step.enqueue", -1, node)
+            logits, self.slot_cache = self.model.decode_step(
+                feed, self.slot_cache)
+            spans.close(enqueue)
+            self._emit(EventKind.D2H_XFER, device=0,
+                       size=len(slots) * 4)
+            self.stats["steps"] += 1
+            # greedy argmax on the device; one copy to the host per step
+            wait = spans.open("step.wait", -1, node)
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            spans.close(wait)
+            self._record_tokens(slots, nxt)
+        finally:
+            spans.close(span)
+
+    def _record_tokens(self, slots: list[int], nxt: np.ndarray) -> None:
+        """The step's bookkeeping: each running slot's token counted, the
+        finished ones released, their egress and a KV sample emitted."""
         eg_flow: list[int] = []
         eg_meta: list[int] = []
         for s in slots:
