@@ -26,7 +26,11 @@ Phases, each printing one JSON line:
            shared attention block, and one tail layer), qwen2-moe-a2.7b
            and granite-moe-3b-a800m with 2, xlstm-125m with 2 (one pair),
            llava-next-mistral-7b with 2 after 576 seeded patch embeddings,
-           and seamless-m4t-large-v2 with 2 + 2 over 200 seeded frames
+           and seamless-m4t-large-v2 with 2 + 2 over 200 seeded frames;
+           then the engine's decode step as one CUDA graph: zamba2-7b (7
+           layers) and qwen2-moe-a2.7b (2), bf16, 8 prefilled slots, 17
+           steps eager and the same steps captured and replayed from
+           copies of one cache, logits equal bit for bit
   train    the loss and every gradient at full width, f32, the same
            seeded weights on the CPU and on the card, 256 tokens:
            qwen3-0.6b (2 layers), zamba2-7b (7: the SSD forward and
@@ -842,6 +846,93 @@ def path_case(torch, ops, arch: str, n_layers: int, enc_layers: int = 0,
     return row
 
 
+def graph_case(torch, ops, arch: str, n_layers: int, steps: int = 16
+               ) -> dict:
+    """Full width, bf16, seeded weights, ``n_layers`` layers, 8 slots
+    prefilled through an engine; from copies of that cache, ``steps`` + 1
+    greedy decode steps of ``serving.engine.decode_body`` run eagerly, and
+    the same steps with the first one captured (``capture_step``) and the
+    rest replayed from the graph.  Logits equal bit for bit (else the
+    largest gap, with the tokens still equal), the same launches counted,
+    and each way's host time a step (each step waited for)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import build_model
+    from repro_torch.serving import (EngineConfig, InferenceEngine,
+                                     ServeRequest)
+    from repro_torch.serving.engine import capture_step, decode_body
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=n_layers)
+    model = build_model(cfg, device="cuda", seed=3)
+    eng = InferenceEngine(model, EngineConfig(
+        max_slots=8, max_seq=2048, page_size=16, n_pages=1024,
+        telemetry=False))
+    rng = random.Random(3)
+    for i, n in enumerate([50, 64, 120, 200, 256, 333, 512, 1000]):
+        eng.submit(ServeRequest(i, 0.0, [rng.randrange(cfg.vocab)
+                                         for _ in range(n)], steps + 1))
+    eng._admit_loop()
+    first = [eng._slot_next_token[s] for s in range(8)]
+    runs = {}
+    for way in ("eager", "graph"):
+        cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in eng.slot_cache.items()}
+        tokens = torch.tensor(first, dtype=torch.int32,
+                              device="cuda")[:, None]
+        nxt = torch.zeros(8, dtype=torch.int64, device="cuda")
+        ptrs = {k: v.data_ptr() for k, v in cache.items()
+                if isinstance(v, torch.Tensor)}
+
+        def body():
+            return decode_body(model, tokens, cache, nxt)
+        ops.reset_launch_counts()
+        logits, toks, secs = [], [], []
+        graph = None
+        for i in range(steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if way == "eager":
+                out = body()
+            elif graph is None:
+                out, graph = capture_step(body, model.device)
+                check(graph is not None, f"{arch}: the step was not "
+                      "captured (it waited for the device)")
+            else:
+                out = graph.replay()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            logits.append(out.float().clone())
+            toks.append(nxt.clone())
+            tokens.copy_(nxt[:, None])
+        check(ptrs == {k: v.data_ptr() for k, v in cache.items()
+                       if isinstance(v, torch.Tensor)},
+              f"{arch}: a cache tensor moved in the {way} steps")
+        runs[way] = {"logits": torch.stack(logits), "tokens":
+                     torch.stack(toks), "launches": ops.launch_counts(),
+                     "ms_per_step": sorted(secs[1:])[steps // 2] * 1e3}
+    a, b = runs["eager"], runs["graph"]
+    equal = torch.equal(a["logits"], b["logits"])
+    gap = float((a["logits"] - b["logits"]).abs().max())
+    check(bool(torch.isfinite(b["logits"]).all()), f"{arch}: replayed "
+          "logits not finite")
+    check(equal or torch.equal(a["tokens"], b["tokens"]), f"{arch}: "
+          f"replayed steps differ from eager ones (max |d| {gap}) and "
+          "so do their tokens")
+    check(a["launches"] == b["launches"], f"{arch}: launches "
+          f"{b['launches']} replayed, {a['launches']} eager")
+    want = kernel_launches(cfg, 0, steps + 1)
+    check(a["launches"] == want, f"{arch}: launches {a['launches']}, "
+          f"want {want}")
+    del eng, model, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model": arch, "layers": n_layers, "dtype": cfg.dtype,
+            "slots": 8, "steps": steps + 1, "bit_equal": equal,
+            "max_abs_gap": gap, "tokens_equal": torch.equal(a["tokens"],
+                                                            b["tokens"]),
+            "launches": a["launches"],
+            "eager_ms_per_step": a["ms_per_step"],
+            "replayed_ms_per_step": b["ms_per_step"]}
+
+
 def phase_path(torch, ops) -> dict:
     cases = [path_case(torch, ops, "qwen3-0.6b", 2),
              # one super-block (6 Mamba2 layers + the shared block) and a
@@ -857,7 +948,11 @@ def phase_path(torch, ops) -> dict:
                        frontend=576),
              path_case(torch, ops, "seamless-m4t-large-v2", 2,
                        enc_layers=2, frontend=200)]
-    return {"cases": cases}
+    # one CUDA graph a decode step against the same steps run eagerly, at
+    # the benchmark's two configurations (bf16) cut to the depths above
+    graphs = [graph_case(torch, ops, "zamba2-7b", 7),
+              graph_case(torch, ops, "qwen2-moe-a2.7b", 2)]
+    return {"cases": cases, "graphs": graphs}
 
 
 # ----------------------------------------------------------------------
@@ -1242,6 +1337,19 @@ def checked(torch, fn, finite: list):
     return inner
 
 
+def checked_steps(torch, eng, finite: list) -> None:
+    """After each of ``eng``'s decode steps, one device flag appended to
+    ``finite``: whether the step's logits are all finite.  On the card the
+    step replays one CUDA graph, which a wrapper on ``Model.decode_step``
+    sees only at its capture, so the flag is taken after the step."""
+    step = eng._step
+
+    def inner():
+        step()
+        finite.append(torch.isfinite(eng.step_logits).all())
+    eng._step = inner
+
+
 def moe_step_weights(torch, cfg, step, tokens: list[int]) -> dict:
     """The expert weights one decode step reads: the step run once on
     ``tokens`` (one per slot) with each MoE layer's routing read back (top-
@@ -1304,9 +1412,9 @@ def serve_case(torch, ops, arch: str, lens: list[int], new_tokens: tuple,
     calls = dict.fromkeys(spent, 0)
     prefill, decode_step = model.prefill, model.decode_step
     model.prefill = checked(torch, model.prefill, finite)
-    model.decode_step = checked(torch, model.decode_step, finite)
     eng._prefill = timed(eng._prefill, spent, calls, "prefill")
     eng._step = timed(eng._step, spent, calls, "decode")
+    checked_steps(torch, eng, finite)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1421,7 +1529,7 @@ def loop_run(torch, model, observe: bool = False, **kw) -> dict:
     (the hand-off to the plane or to the sidecar, and the sidecar's
     advance: the loop's host cost).  With ``observe``, also what the loop
     observed (every batch into the sidecar, its report, the tracer's
-    counters and incidents) and one finite flag per model call."""
+    counters and incidents) and one finite flag per prefill and step."""
     from repro_torch.core.events import BATCH_COLUMNS
     from repro_torch.serving import EngineConfig, InferenceEngine
     eng = InferenceEngine(model, EngineConfig(**{**LOOP, **kw}))
@@ -1435,7 +1543,7 @@ def loop_run(torch, model, observe: bool = False, **kw) -> dict:
     sink, finite = [], []
     if observe:
         model.prefill = checked(torch, model.prefill, finite)
-        model.decode_step = checked(torch, model.decode_step, finite)
+        checked_steps(torch, eng, finite)
         if eng.dpu is not None:
             observe_batch = eng.dpu.observe_batch
 
@@ -1448,7 +1556,7 @@ def loop_run(torch, model, observe: bool = False, **kw) -> dict:
     rep = eng.run(reqs, max_steps=800)
     wall = time.perf_counter() - t0
     if observe:
-        del model.prefill, model.decode_step
+        del model.prefill
     check(rep["completed"] == len(reqs), f"control loop on "
           f"{model.device}: completed {rep['completed']} of {len(reqs)}")
     check(rep["tokens"] == sum(r.max_new_tokens for r in reqs),
@@ -1646,20 +1754,20 @@ def examples() -> dict:
 def quickstart_serve(torch, model) -> dict:
     """Step 2: ``torch_quickstart.serve`` on its engine (telemetry and
     mitigation); every decode step and prefill timed on the host clock,
-    every model call's logits checked finite."""
+    every prefill's and every step's logits checked finite."""
     tq = examples()["quickstart"]
     eng = tq.engine(model)
     spent = {"prefill": 0.0, "decode": 0.0}
     calls = dict.fromkeys(spent, 0)
     finite = []
+    model.prefill = checked(torch, model.prefill, finite)
     eng._prefill = timed(eng._prefill, spent, calls, "prefill")
     eng._step = timed(eng._step, spent, calls, "decode")
-    model.prefill = checked(torch, model.prefill, finite)
-    model.decode_step = checked(torch, model.decode_step, finite)
+    checked_steps(torch, eng, finite)
     t0 = time.perf_counter()
     rep = tq.serve(eng)
     wall = time.perf_counter() - t0
-    del model.prefill, model.decode_step
+    del model.prefill
     check(bool(torch.stack(finite).all()), f"quickstart on {model.device}: "
           "logits not finite")
     tel = rep["telemetry"]

@@ -22,7 +22,8 @@ its outputs written once) rather than the plain version's intermediates.
 
 ``launch_counts`` reads how many times each kernel was launched, and
 ``reset_launch_counts`` sets them to zero, so a run can show that its path
-went through the kernels.
+went through the kernels; ``add_launch_counts`` books the launches of a
+replayed CUDA graph, which calls no wrapper.
 """
 
 from __future__ import annotations
@@ -166,3 +167,10 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (launches by kernel name, negative to take back) to
+    the launch counts."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

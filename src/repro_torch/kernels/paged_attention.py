@@ -105,16 +105,17 @@ def _library() -> ctypes.CDLL:
 
 
 # one zeroed counter buffer per device: the kernel leaves it zeroed, so no
-# launch clears it between calls (one stream at a time uses it)
-_counters: dict[torch.device, torch.Tensor] = {}
+# launch clears it between calls (one stream at a time uses it).  A buffer
+# outgrown is kept: a captured CUDA graph may still launch on it.
+_counters: dict[torch.device, list[torch.Tensor]] = {}
 
 
 def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
+    bufs = _counters.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,

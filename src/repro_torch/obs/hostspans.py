@@ -12,8 +12,13 @@ the host was doing while the device sat idle.  The names::
         prefill.enqueue  ``Model.prefill``, its read-back of ``pos``
         prefill.wait     the first token's copy to the host
     engine.step      the whole decode step
-      step.enqueue     ``Model.decode_step``, until every launch is issued
-      step.wait        the next tokens' argmax and copy to the host
+      step.enqueue     the tokens' copy to the device and the step issued:
+                       on the card one CUDA graph's replay (at the first
+                       step its eager warm-up and capture), elsewhere
+                       ``Model.decode_step`` run eagerly
+        step.replay      the graph's replay alone
+      step.wait        the next tokens' copy to the host, which waits for
+                       the device to finish the step
     engine.flush     the step's events into the sink, the DPU's advance
 
 Times are ``time.perf_counter_ns()``.  Recording is always on and draws

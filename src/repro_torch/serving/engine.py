@@ -7,7 +7,10 @@ Mamba2 states, with a position per slot; the decode step runs every slot in
 one call, so every slot carries its own position/ring state (true continuous
 batching).  Prefill attention runs in the flash kernel, decode attention in
 the paged kernel, a hybrid's prefill scan in the SSD kernel (through
-``Model``).  Telemetry taps emit the exact event
+``Model``).  On the card an engine captures its decode step as one CUDA
+graph at its first step and replays it at every later one
+(``capture_step``); elsewhere the same step body (``decode_body``) runs
+eagerly.  Telemetry taps emit the exact event
 schema the detectors consume: INGRESS on request arrival, H2D around
 prefill feeds, DISPATCH per step, D2H per step, EGRESS per token,
 QUEUE_SAMPLE per scheduler tick -- and the engine implements EngineControls
@@ -19,7 +22,8 @@ so the reports and event batches of the two engines are equal.
 
 from __future__ import annotations
 
-from collections.abc import Iterable
+import warnings
+from collections.abc import Callable, Iterable
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +37,7 @@ from repro_torch.core.detectors import (
 from repro_torch.core.events import EventBatchBuilder, EventKind
 from repro_torch.core.telemetry import TelemetryPlane
 from repro_torch.dpu import DPUParams, DPUSidecar
+from repro_torch.kernels import ops
 from repro_torch.models import Model
 from repro_torch.models.model import CACHE_BATCH_AXIS
 from repro_torch.obs import HOST_SPANS, FlightRecorder, Tracer
@@ -42,6 +47,88 @@ from repro_torch.serving.scheduler import (
     SchedulerConfig,
     ServeRequest,
 )
+
+
+def decode_body(model: Model, tokens: torch.Tensor, cache: dict,
+                next_tokens: torch.Tensor) -> torch.Tensor:
+    """One decode step of every row, in place: ``model.decode_step`` on
+    ``tokens`` (B, 1), the new ``pos`` and ``kpos`` (an xLSTM cache has no
+    ``kpos``) copied into ``cache``'s own tensors, and each row's greedy
+    next token written into ``next_tokens`` (B,) int64.  Returns the logits
+    (B, 1, V).  No tensor of ``cache`` is rebound or moved, so a CUDA graph
+    of this body replays against the memory it was captured on."""
+    logits, new = model.decode_step(tokens, cache)
+    for key in ("pos", "kpos"):
+        if key in cache:
+            cache[key].copy_(new[key])
+    torch.argmax(logits[:, -1], dim=-1, out=next_tokens)
+    return logits
+
+
+class StepGraph:
+    """``body`` captured once into ``graph`` (a ``torch.cuda.CUDAGraph``)
+    inside ``capture(graph)`` (``torch.cuda.graph`` on the warm-up's
+    stream), then replayed.  A capture records launches without running
+    them, and a replay runs them without calling the kernels' wrappers,
+    which count launches as they are called (``ops.launch_counts``): the
+    counts a capture added are taken back and added again at each
+    replay."""
+
+    def __init__(self, body: Callable[[], torch.Tensor], graph,
+                 capture: Callable) -> None:
+        before = ops.launch_counts()
+        with capture(graph):
+            self.output = body()
+        self.launches = {name: n - before[name]
+                         for name, n in ops.launch_counts().items()
+                         if n != before[name]}
+        ops.add_launch_counts({name: -n for name, n in self.launches.items()})
+        self.graph = graph
+
+    def replay(self) -> torch.Tensor:
+        """Launch the captured step; returns its output tensor, which every
+        replay writes anew."""
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        return self.output
+
+
+def _synchronizes(fn: Callable[[], torch.Tensor]
+                  ) -> tuple[torch.Tensor, bool]:
+    """``fn()`` and whether it made the host wait for the device (CUDA's
+    sync debugging on, in its warning mode): a graph cannot capture such a
+    call, e.g. PyTorch's grouped matmul outside bf16, which reads its
+    offsets back."""
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return out, any("called a synchronizing" in str(w.message)
+                    for w in seen)
+
+
+def capture_step(body: Callable[[], torch.Tensor], device: torch.device
+                 ) -> tuple[torch.Tensor, StepGraph | None]:
+    """The first decode step on the card: ``body`` run once, eagerly, on a
+    side stream (a real step, and the warm-up: it allocates what a first
+    run allocates, such as that stream's cuBLAS workspace and the paged
+    kernel's counters), then captured on that stream.  Returns the step's
+    output and the graph, or None where the step waited for the device,
+    which a graph cannot capture: that step stays eager."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        out, waited = _synchronizes(body)
+    torch.cuda.current_stream(device).wait_stream(stream)
+    if waited:
+        return out, None
+    graph = StepGraph(body, torch.cuda.CUDAGraph(),
+                      lambda g: torch.cuda.graph(g, stream=stream))
+    return out, graph
 
 
 @dataclass
@@ -113,6 +200,18 @@ class InferenceEngine:
         self.slot_cache = model.init_cache(self.cfg.max_slots,
                                            self.cfg.max_seq,
                                            self.cfg.page_size)
+        # the decode step's fixed buffers: every slot's token in, its greedy
+        # next token out; the step writes the cache in place
+        self._tokens = torch.zeros((self.cfg.max_slots, 1), dtype=torch.int32,
+                                   device=model.device)
+        self._next = torch.zeros((self.cfg.max_slots,), dtype=torch.int64,
+                                 device=model.device)
+        # on the card: whether the first step (the capture) has run, and
+        # the graph every later step replays
+        self._captured = False
+        self._graph: StepGraph | None = None
+        # the last decode step's logits (B, 1, V)
+        self.step_logits: torch.Tensor | None = None
         self.clock = 0.0
         self.completed: list[ServeRequest] = []
         self.kv_compress = False
@@ -298,24 +397,36 @@ class InferenceEngine:
             for s in slots:
                 toks[s, 0] = self._slot_next_token.get(s, 0)
             self._emit(EventKind.DISPATCH, device=0)
-            feed = torch.from_numpy(toks).to(self.model.device)
             # every slot decodes, idle ones included, as in the JAX package
             enqueue = spans.open("step.enqueue", -1, node)
-            logits, self.slot_cache = self.model.decode_step(
-                feed, self.slot_cache)
+            self._tokens.copy_(torch.from_numpy(toks))
+            if self._graph is not None:
+                replay = spans.open("step.replay", -1, node)
+                self.step_logits = self._graph.replay()
+                spans.close(replay)
+            elif self._tokens.is_cuda and not self._captured:
+                self._captured = True
+                self.step_logits, self._graph = capture_step(
+                    self._decode_body, self._tokens.device)
+            else:
+                self.step_logits = self._decode_body()
             spans.close(enqueue)
             self._emit(EventKind.D2H_XFER, device=0,
                        size=len(slots) * 4)
             self.stats["steps"] += 1
-            # greedy argmax on the device; one copy to the host per step
+            # the greedy tokens, taken on the device; one copy to the host
             wait = spans.open("step.wait", -1, node)
-            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            nxt = self._next.tolist()
             spans.close(wait)
             self._record_tokens(slots, nxt)
         finally:
             spans.close(span)
 
-    def _record_tokens(self, slots: list[int], nxt: np.ndarray) -> None:
+    def _decode_body(self) -> torch.Tensor:
+        return decode_body(self.model, self._tokens, self.slot_cache,
+                           self._next)
+
+    def _record_tokens(self, slots: list[int], nxt: list[int]) -> None:
         """The step's bookkeeping: each running slot's token counted, the
         finished ones released, their egress and a KV sample emitted."""
         eg_flow: list[int] = []

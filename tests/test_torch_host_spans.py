@@ -18,6 +18,7 @@ from repro_torch.obs import (  # noqa: E402
 )
 from repro_torch.serving import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.serving import ServeRequest  # noqa: E402
+from torch_graphs import install  # noqa: E402
 
 NAMES = {"request.queue", "engine.admit", "engine.prefill",
          "prefill.enqueue", "prefill.wait", "engine.step", "step.enqueue",
@@ -26,7 +27,7 @@ PARENT = {"request.queue": None, "engine.admit": None, "engine.step": None,
           "engine.flush": None, "engine.prefill": "engine.admit",
           "prefill.enqueue": "engine.prefill",
           "prefill.wait": "engine.prefill", "step.enqueue": "engine.step",
-          "step.wait": "engine.step"}
+          "step.wait": "engine.step", "step.replay": "step.enqueue"}
 
 
 @pytest.fixture(scope="module")
@@ -85,6 +86,27 @@ def test_engine_run_leaves_the_span_tree(model):
     # one admission and one flush an iteration, and the report's flush
     assert len(named("engine.admit")) >= rep["steps"]
     assert len(named("engine.flush")) == len(named("engine.admit")) + 1
+
+
+def test_a_replayed_step_opens_its_replay_inside_the_enqueue(model):
+    eng = _engine(model)
+    graph = install(eng)
+    t0 = time.perf_counter_ns()
+    rep = eng.run(_requests())
+    spans = HOST_SPANS.within(t0, time.perf_counter_ns())
+    by_index = {s.index: s for s in spans}
+    assert {s.name for s in spans} == NAMES | {"step.replay"}
+    replays = [s for s in spans if s.name == "step.replay"]
+    assert len(replays) == graph.replays == rep["steps"]
+    for s in replays:
+        up = by_index[s.parent]
+        assert up.name == PARENT[s.name] == "step.enqueue"
+        assert up.start <= s.start and s.end <= up.end
+    # no span nests in a replay
+    assert not {s.parent for s in spans} & {s.index for s in replays}
+    for step in (s for s in spans if s.name == "engine.step"):
+        kids = [s for s in spans if s.parent == step.index]
+        assert [s.name for s in kids] == ["step.enqueue", "step.wait"]
 
 
 def test_iterate_is_the_body_of_run(model):
