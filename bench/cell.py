@@ -4,7 +4,9 @@ check against the reference and the metrics.
 
 A cell (``BENCHMARK.json``'s ``workloads`` entry) names a configuration
 (``configs[].file``: the model's ``run`` sizes, its dtype, the weight
-initialisation) and a traffic mix (``bench/traffic/<traffic>.json``); the
+initialisation, and under ``"reference"`` the path of its plain float32
+module, which computes its logits for the check and states its work for
+the metrics) and a traffic mix (``bench/traffic/<traffic>.json``); the
 limits of its check are in ``bench/checks/<workload>.json``."""
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from bench import check
 from bench.loop import Loop
-from bench.readout import Readout, reader
+from bench.readout import Readout, module, reader
 from bench.weights import fill
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -36,10 +38,18 @@ class Cell:
     limits: dict | None       # the check's limits, by number
     end_to_end: list          # metric entries of BENCHMARK.json
     per_layer: list
+    reference: object         # the configuration's reference module
 
 
 def _applies(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
+
+
+def reference(config: dict, root: Path = ROOT):
+    """The module at the configuration's ``"reference"`` path (relative to
+    ``root``, the checkout), loaded by path as the metric readers are."""
+    path = root / config["reference"]
+    return module(path, f"bench_reference_{path.stem}")
 
 
 def load(workload: str, root: Path = ROOT) -> Cell:
@@ -57,7 +67,8 @@ def load(workload: str, root: Path = ROOT) -> Cell:
         if limits_file.exists() else None
     return Cell(workload, config, mix, limits,
                 [m for m in spec["end_to_end"] if _applies(m, workload)],
-                [m for m in spec["per_layer"] if _applies(m, workload)])
+                [m for m in spec["per_layer"] if _applies(m, workload)],
+                reference(config, root))
 
 
 def buckets(mix: dict, prefill_buckets: tuple) -> list[int]:
@@ -157,7 +168,7 @@ def serve(cell: Cell, seed: int, seconds: float, trace: bool,
                 if t_open <= r.finished <= t_close]
     ro = Readout(cell.config["run"], cell.mix, setup_s, t_open, t_close,
                  loop.iterations, list(loop.requests.values()), PAGE, tr,
-                 traced)
+                 traced, cell.reference)
     # the program's state goes before the reference runs
     engine.slot_cache = None
     del engine, loop
@@ -190,9 +201,10 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     params = dict(sv.model.decoder.named_parameters())
     picked = check.sample(sv.finished, cell.mix["check"], seed)
     t_check = time.perf_counter()
-    checked = Checked(picked, check.gaps(run, run["family"], params, picked))
+    ref = cell.reference
+    checked = Checked(picked, check.gaps(run, ref, params, picked))
     if control or BASELINE in (cell.limits or {}):
-        checked.baseline = check.gaps(run, run["family"], params, picked,
+        checked.baseline = check.gaps(run, ref, params, picked,
                                       rounding="bf16")
     nums = check.numbers(checked.program, checked.baseline)
     log(f"check of {len(picked)} requests, {nums['tokens']} tokens: "
@@ -216,7 +228,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     result["check"] = {"sampled_requests": len(picked),
                        "sampled_tokens": nums["tokens"], **lines}
     if control:
-        checked.control = check.gaps(run, run["family"], params, picked,
+        checked.control = check.gaps(run, ref, params, picked,
                                      rounding="e4m3")
     return result, checked
 

@@ -1,5 +1,6 @@
 """The comparison that decides ``correct``: served tokens against the plain
-float32 reference (``bench/reference/<family>.py``).
+float32 reference, the module that the configuration names under
+``"reference"`` (``forward`` and ``logits``).
 
 Once the window has closed, a sample of the requests it finished is drawn
 from the seed, the one with the most served tokens always in it.  For each,
@@ -27,12 +28,8 @@ worked out only for a cell whose limits name it."""
 
 from __future__ import annotations
 
-import importlib
-
 import numpy as np
 import torch
-
-FAMILIES = {"hybrid": "bench.reference.hybrid", "moe": "bench.reference.moe"}
 
 
 def sample(requests: list, rule: dict, seed: int) -> list:
@@ -121,12 +118,12 @@ def rounded_weights(params: dict, fmt: str) -> dict:
             else w for name, w in params.items()}
 
 
-def gaps(run: dict, family: str, params: dict, reqs: list,
+def gaps(run: dict, ref, params: dict, reqs: list,
          rounding: str | None = None, batch: int = 4) -> list[np.ndarray]:
-    """The gap of each checked token, one array per request (logit units):
-    served tokens, or with ``rounding`` ("e4m3": the control; "bf16": the
-    baseline) the rounded reference's first choices."""
-    ref = importlib.import_module(FAMILIES[family])
+    """The gap of each checked token, one array per request (logit units),
+    by the reference module ``ref``: served tokens, or with ``rounding``
+    ("e4m3": the control; "bf16": the baseline) the rounded reference's
+    first choices."""
     dev = params["embed"].device
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)

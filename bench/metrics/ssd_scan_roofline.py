@@ -1,7 +1,8 @@
 """The SSD-scan kernels' share of their roofline over the traced prefills:
 the sum of each call's bound (``work.ssd_work`` on the prefill bucket, with
-an initial state, at the f32 peak and the HBM bandwidth) over the device
-time of its three kernels, in percent."""
+an initial state, at the f32 peak and the HBM bandwidth), one call per SSD
+layer of each kind the reference module counts, over the device time of
+its three kernels, in percent.  Silent for a model without SSD layers."""
 
 from bench import work
 
@@ -9,14 +10,11 @@ SYMBOLS = ("ssd_chunk_states", "ssd_state_pass", "ssd_chunk_output")
 
 
 def read(ro):
-    if ro.trace is None or ro.run["family"] != "hybrid":
+    if ro.trace is None or not ro.counts.ssd:
         return None
-    run = ro.run
-    di = run["ssm_expand"] * run["d_model"]
-    h = di // run["ssm_head_dim"]
-    bound = sum(work.bound_s(*work.ssd_work(
-        1, bucket, h, run["ssm_head_dim"], run["ssm_state"], True),
-        "float32") for it in ro.traced for bucket, _, _ in it.prefills)
-    bound *= run["n_layers"]
+    bound = sum(n * sum(work.bound_s(*work.ssd_work(
+        1, bucket, h, p, state, True, groups), "float32")
+        for it in ro.traced for bucket, _, _ in it.prefills)
+        for n, h, p, state, groups in ro.counts.ssd)
     dev = ro.kernel_s(SYMBOLS)
     return bound / dev * 100 if dev > 0 and bound > 0 else None

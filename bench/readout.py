@@ -2,7 +2,9 @@
 
 Each reader is a module with ``read(ro: Readout) -> float | None``; it
 returns None where its cell gives it nothing to read, and the metric is
-then left out of the result line."""
+then left out of the result line.  A reader that counts a model's work
+takes it from ``Readout.counts``: what the configuration's reference module
+states (``bench/work.py``'s ``Counts``)."""
 
 from __future__ import annotations
 
@@ -27,6 +29,12 @@ class Readout:
     page_size: int = 16       # the engine's KV page
     trace: object = None      # trace.Trace of the traced iterations
     traced: list = field(default_factory=list)   # the traced iterations
+    reference: object = None  # the configuration's reference module
+
+    @property
+    def counts(self):
+        """The model's work, as its reference module states it."""
+        return self.reference.counts(self.run)
 
     @property
     def seconds(self) -> float:
@@ -49,11 +57,14 @@ def percentile(values, q: float) -> float | None:
         if len(values) else None
 
 
-def reader(name: str):
-    """The ``read`` function of ``metrics/<name>.py``."""
-    path = METRICS / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}",
-                                                  path)
+def module(path: Path, name: str):
+    """The Python file at ``path``, loaded as a module called ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    """The ``read`` function of ``metrics/<name>.py``."""
+    return module(METRICS / f"{name}.py", f"bench_metric_{name}").read

@@ -14,14 +14,19 @@ by silu(z) and projected by ``out_proj``.  No convolution, no biases.
 
 The scan is computed in the chunked form, each chunk's decays as sums over
 the steps inside it (a "segment sum"), so that no difference of two long
-cumulative sums loses digits."""
+cumulative sums loses digits.
+
+``counts`` states the work of one token for the yardstick
+(``bench/work.py``)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from bench.reference.layers import attention, f32, head, rmsnorm, swiglu
+from bench.reference.layers import (attention, attention_weights, f32,
+                                    head, heads, rmsnorm, swiglu)
+from bench.work import Counts
 
 CHUNK = 64
 
@@ -117,3 +122,23 @@ def forward(run: dict, params: dict, tokens: torch.Tensor, **_
 
 def logits(run: dict, params: dict, x: torch.Tensor) -> torch.Tensor:
     return head(x, run, params["ln_f.scale"], params["lm_head"])
+
+
+def counts(run: dict) -> Counts:
+    """Per Mamba2 layer ``in_proj`` (d, 2 di + 2 n + h) and ``out_proj``
+    (di, d), its SSD scan (h heads of p, state n, one B/C group) and the
+    recurrence's 4 h p n FLOPs a token (decay and update of the state, and
+    its read); per application of the shared block (``n_layers //
+    attn_every``) its attention and SwiGLU; the head d x vocab."""
+    d = run["d_model"]
+    di = run["ssm_expand"] * d
+    n, p = run["ssm_state"], run["ssm_head_dim"]
+    h = di // p
+    mamba = d * (2 * di + 2 * n + h) + di * d
+    shared = attention_weights(run) + 3 * d * run["d_ff"]
+    apps = run["n_layers"] // run["attn_every"]
+    return Counts(weights=run["n_layers"] * mamba + apps * shared,
+                  head=d * run["vocab"],
+                  attention=((apps, *heads(run)),),
+                  ssd=((run["n_layers"], h, p, n, 1),),
+                  other_flops=4.0 * h * p * n * run["n_layers"])

@@ -1,4 +1,4 @@
-"""Layers the two families share, in float32: RMSNorm, half-split RoPE,
+"""Layers the reference modules share, in float32: RMSNorm, half-split RoPE,
 causal softmax attention, SwiGLU.  TF32 is switched off by the callers
 (``bench/check.py``), so every product here is an IEEE float32 one."""
 
@@ -32,12 +32,23 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def heads(run: dict) -> tuple[int, int, int]:
+    """The attention's query heads, KV heads and head dim."""
+    hq = run["n_heads"]
+    return hq, run["n_kv_heads"], run["head_dim"] or run["d_model"] // hq
+
+
+def attention_weights(run: dict) -> int:
+    """Weights of the attention's four projections."""
+    hq, hkv, hd = heads(run)
+    return run["d_model"] * hq * hd * 2 + run["d_model"] * hkv * hd * 2
+
+
 def attention(h: torch.Tensor, p: dict, run: dict) -> torch.Tensor:
     """Causal GQA self-attention over h (B, L, d) with RoPE, 1/sqrt(D)
     scaling, no biases; the weights are (in, out)."""
     b, l, _ = h.shape
-    hq, hkv = run["n_heads"], run["n_kv_heads"]
-    hd = run["head_dim"] or run["d_model"] // hq
+    hq, hkv, hd = heads(run)
     q = rope((h @ f32(p["wq"])).view(b, l, hq, hd), run["rope_theta"])
     k = rope((h @ f32(p["wk"])).view(b, l, hkv, hd), run["rope_theta"])
     v = (h @ f32(p["wv"])).view(b, l, hkv, hd)

@@ -13,13 +13,16 @@ choice-minor order, and drops the rest.  Serving forms the groups so: a
 prefill is one group of its whole bucket (left padding included), and each
 decoded token is a group of its own (cap = k: nothing drops).  ``forward``
 takes that grouping as ``prefill`` (B,): the length of each sequence's
-prefill group."""
+prefill group.  ``counts`` states the work of one token for the yardstick
+(``bench/work.py``)."""
 
 from __future__ import annotations
 
 import torch
 
-from bench.reference.layers import attention, f32, head, rmsnorm, swiglu
+from bench.reference.layers import (attention, attention_weights, f32,
+                                    head, heads, rmsnorm, swiglu)
+from bench.work import Counts
 
 
 def capacity(group: int, run: dict) -> int:
@@ -87,3 +90,15 @@ def forward(run: dict, params: dict, tokens: torch.Tensor,
 
 def logits(run: dict, params: dict, x: torch.Tensor) -> torch.Tensor:
     return head(x, run, params["ln_f.scale"], params["lm_head"])
+
+
+def counts(run: dict) -> Counts:
+    """Per layer its attention, the router (d, E), the top-k routed experts
+    and the shared experts (each a SwiGLU of width ``expert_d_ff``); the
+    head d x vocab."""
+    d, f = run["d_model"], run["expert_d_ff"]
+    ffn = d * run["n_experts"] + run["top_k"] * 3 * d * f \
+        + run["n_shared_experts"] * 3 * d * f
+    return Counts(weights=run["n_layers"] * (attention_weights(run) + ffn),
+                  head=d * run["vocab"],
+                  attention=((run["n_layers"], *heads(run)),))

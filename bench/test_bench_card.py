@@ -3,7 +3,7 @@ control (the float32 reference with float8 weights in the program's
 place), at the cell's own sizes with a short window.  Skips without a
 card.  Run on the card with:
 
-    python3 -m pytest -q -m card bench/test_bench_card.py
+    PYTHONPATH=src python3 -m pytest -q -m card bench/test_bench_card.py
 """
 
 import json

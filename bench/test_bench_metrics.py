@@ -6,6 +6,7 @@ import math
 import pytest
 
 from bench import work
+from bench.reference import moe
 from bench.loop import Iteration
 from bench.readout import Readout, reader
 from bench.traffic import Request
@@ -91,24 +92,50 @@ def test_ssd_work_by_hand():
     assert f2 == tri * 2 + (tri * 2 + 2 * 130 * 2)
 
 
+@pytest.mark.parametrize("groups", [1, 2, 8])
+def test_ssd_work_counts_each_group(groups):
+    # one chunk of 3 steps: C B^T (6 pairs of n = 5) once per group; B and
+    # C (3 x 5 each) read once per group; the heads' work unchanged
+    flops, nbytes = work.ssd_work(1, 3, 2, 4, 5, True, groups=groups)
+    assert flops == groups * 6 * 5 * 2 + 2 * (6 * 4 * 2 + 2 * 3 * 5 * 4 * 2)
+    assert nbytes == 4 * (2 * 3 * 2 * 4 + 3 * 2 + groups * 2 * 3 * 5
+                          + 2 * 2 * 4 * 5)
+    one = work.ssd_work(1, 3, 2, 4, 5, True)
+    f1, b1 = work.ssd_work(1, 3, 2, 4, 5, True, groups=1)
+    assert (f1, b1) == one
+    assert flops - f1 == (groups - 1) * 6 * 5 * 2
+    assert nbytes - b1 == 4 * (groups - 1) * 2 * 3 * 5
+
+
 def test_bound_takes_the_larger_term():
     assert work.bound_s(989e12, 0, "bfloat16") == pytest.approx(1.0)
     assert work.bound_s(1.0, 3.35e12, "bfloat16") == pytest.approx(1.0)
 
 
+def dense(run: dict) -> work.Counts:
+    """The counts a plain dense decoder's reference module would state: per
+    layer its attention and a SwiGLU of width ``d_ff``."""
+    d, hd = run["d_model"], run["head_dim"]
+    attn = d * run["n_heads"] * hd * 2 + d * run["n_kv_heads"] * hd * 2
+    return work.Counts(
+        weights=run["n_layers"] * (attn + 3 * d * run["d_ff"]),
+        head=d * run["vocab"],
+        attention=((run["n_layers"], run["n_heads"], run["n_kv_heads"], hd),))
+
+
 def test_token_flops_by_hand():
-    run = {"family": "dense", "d_model": 8, "n_heads": 2, "n_kv_heads": 1,
-           "head_dim": 4, "d_ff": 16, "n_layers": 2, "vocab": 10,
-           "n_experts": 0}
+    run = {"d_model": 8, "n_heads": 2, "n_kv_heads": 1, "head_dim": 4,
+           "d_ff": 16, "n_layers": 2, "vocab": 10}
+    c = dense(run)
     per_layer = 8 * 8 * 2 + 8 * 4 * 2 + 3 * 8 * 16
-    assert work.matmul_params(run) == 2 * per_layer
-    f = work.token_flops(run, 5, True)
+    assert c.weights == 2 * per_layer
+    f = work.token_flops(c, 5, True)
     assert f == 2 * 2 * per_layer + 4 * 4 * 2 * 5 * 2 + 2 * 8 * 10
     # a prompt of 3: contexts 1 + 2 + 3, the head once
-    assert work.prompt_flops(run, 3) == pytest.approx(
+    assert work.prompt_flops(c, 3) == pytest.approx(
         3 * 2 * 2 * per_layer + 4 * 4 * 2 * 2 * 6 + 2 * 8 * 10)
-    assert work.step_flops(run, 2, 9) == pytest.approx(
-        2 * work.token_flops(run, 0, True) + 4 * 4 * 2 * 2 * 9)
+    assert work.step_flops(c, 2, 9) == pytest.approx(
+        2 * work.token_flops(c, 0, True) + 4 * 4 * 2 * 2 * 9)
 
 
 def test_moe_params_count_routed_and_shared():
@@ -118,5 +145,6 @@ def test_moe_params_count_routed_and_shared():
     attn = 2 * d * run["n_heads"] * hd + 2 * d * run["n_kv_heads"] * hd
     ffn = d * run["n_experts"] + run["top_k"] * 3 * d * f \
         + run["n_shared_experts"] * 3 * d * f
-    assert work.matmul_params(run) == run["n_layers"] * (attn + ffn)
-    assert math.isfinite(work.token_flops(run, 10, True))
+    c = moe.counts(run)
+    assert c.weights == run["n_layers"] * (attn + ffn)
+    assert math.isfinite(work.token_flops(c, 10, True))

@@ -1,5 +1,6 @@
 """Tiny cells for the CPU tests: each family at a few layers of small
-width, the kernels' plain versions, a closed loop of four clients."""
+width, the kernels' plain versions, a closed loop of four clients.  Each
+configuration names its reference module as the full ones do."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ TINY_MIX = {
     "check": {"min_requests": 3, "min_tokens": 20, "max_requests": 6},
 }
 DT_INIT = {"min": 1e-3, "max": 0.1, "floor": 1e-4}
+REFERENCE = {"hybrid": "bench/reference/hybrid.py",
+             "moe": "bench/reference/moe.py"}
 
 
 def run_sizes(family: str, dtype: str = "float32") -> dict:
@@ -29,12 +32,12 @@ def run_sizes(family: str, dtype: str = "float32") -> dict:
 def cell(family: str, limits=None, dtype: str = "float32", **mix):
     import json
 
-    from bench.cell import ROOT, Cell
+    from bench.cell import ROOT, Cell, reference
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    return Cell(f"tiny-{family}", {"run": run_sizes(family, dtype),
-                                   "dt_init": DT_INIT},
-                {**TINY_MIX, **mix}, limits, spec["end_to_end"],
-                spec["per_layer"])
+    config = {"run": run_sizes(family, dtype), "dt_init": DT_INIT,
+              "reference": REFERENCE[family]}
+    return Cell(f"tiny-{family}", config, {**TINY_MIX, **mix}, limits,
+                spec["end_to_end"], spec["per_layer"], reference(config))
 
 
 class FakeClock:

@@ -1,13 +1,17 @@
 """The yardstick's arithmetic: the card's peaks, a kernel's bound, the work
-of each kernel call from its shapes, and a model's FLOPs per token.
+of each kernel call from its shapes, and a model's FLOPs from the ``Counts``
+that its configuration's reference module states.
 
 ``bound``, the peaks and the flash, paged and SSD work counts are copied
 from ``chip_smoke.py`` (its ``bound``, ``PEAK_*``, ``flash_case``'s and
-``paged_case``'s counts and ``ssd_work``) and frozen here, so that a change
-to the smoke script cannot move the benchmark.  Every input byte is counted
-once and every output byte once."""
+``paged_case``'s counts and ``ssd_work``, which here also counts B/C
+groups) and frozen here, so that a change to the smoke script cannot move
+the benchmark.  Every input byte is counted once and every output byte
+once."""
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 # NVIDIA H100 SXM data sheet, dense: bf16 989 TFLOP/s, f32 outside the
 # tensor cores 67 TFLOP/s, HBM3 3.35 TB/s
@@ -44,87 +48,68 @@ def paged_work(live: int, b: int, hq: int, hkv: int, d: int, per_seq: int,
     return flops, nbytes
 
 
-def ssd_work(b: int, l: int, h: int, p: int, n: int,
-             init: bool) -> tuple[float, float]:
+def ssd_work(b: int, l: int, h: int, p: int, n: int, init: bool,
+             groups: int = 1) -> tuple[float, float]:
     """FLOP and bytes the SSD scan needs on these shapes: C B^T once per
-    batch and chunk (B and C are shared by the heads), G x, C S^T and
-    x^T B per head, lower triangles only, a ragged last chunk as long as
-    it is; every input read once and every output written once.  Its bound
-    takes the f32 peak: the kernel's products are IEEE f32 FMAs."""
+    batch, chunk and B/C group (each group's B and C are shared by its
+    heads), G x, C S^T and x^T B per head, lower triangles only, a ragged
+    last chunk as long as it is; every input read once (B and C once per
+    group) and every output written once.  Its bound takes the f32 peak:
+    the kernel's products are IEEE f32 FMAs."""
     flops = 0.0
     for c0 in range(0, l, SSD_CHUNK):
         lc = min(SSD_CHUNK, l - c0)
         tri = lc * (lc + 1) / 2
-        flops += b * tri * n * 2
+        flops += b * groups * tri * n * 2
         flops += b * h * (tri * p * 2 + 2 * lc * n * p * 2)
     states = (2 if init else 1) * b * h * p * n
-    nbytes = 4.0 * (2 * b * l * h * p + b * l * h + 2 * b * l * n + states)
+    nbytes = 4.0 * (2 * b * l * h * p + b * l * h + 2 * b * l * groups * n
+                    + states)
     return flops, nbytes
 
 
-def matmul_params(run: dict) -> int:
-    """Weights a token multiplies through in one forward pass, without
-    the embedding lookup and the head: attention projections, MLPs, the
-    Mamba2 projections, and for an MoE layer the router, the top-k routed
-    experts and the shared experts."""
-    d, hd = run["d_model"], run["head_dim"] or run["d_model"] // run["n_heads"]
-    attn = d * run["n_heads"] * hd * 2 + d * run["n_kv_heads"] * hd * 2
-    if run["family"] == "hybrid":
-        di = run["ssm_expand"] * d
-        n, h = run["ssm_state"], di // run["ssm_head_dim"]
-        mamba = d * (2 * di + 2 * n + h) + di * d
-        shared = attn + 3 * d * run["d_ff"]
-        return run["n_layers"] * mamba \
-            + (run["n_layers"] // run["attn_every"]) * shared
-    if run["n_experts"]:
-        f = run["expert_d_ff"]
-        ffn = d * run["n_experts"] + run["top_k"] * 3 * d * f \
-            + run["n_shared_experts"] * 3 * d * f
-        return run["n_layers"] * (attn + ffn)
-    return run["n_layers"] * (attn + 3 * d * run["d_ff"])
+@dataclass(frozen=True)
+class Counts:
+    """What the yardstick needs of an architecture, as its reference
+    module's ``counts(run)`` states it: the weights one token multiplies
+    through (the embedding and the head aside); the head's weights; per
+    kind of attention layer (applications in one forward pass, query heads,
+    KV heads, head dim); per kind of SSD layer (layers, heads, head dim,
+    state, B/C groups); and any further FLOPs of one token that do not
+    scale with its context."""
+    weights: int
+    head: int
+    attention: tuple = ()
+    ssd: tuple = ()
+    other_flops: float = 0.0
 
 
-def attention_layers(run: dict) -> int:
-    """Attention applications in one forward pass."""
-    if run["family"] == "hybrid":
-        return run["n_layers"] // run["attn_every"]
-    return run["n_layers"]
+def attend_flops(c: Counts) -> float:
+    """FLOPs of one attended position for one token: 4 * head dim * query
+    heads per attention application."""
+    return 4.0 * sum(n * hq * hd for n, hq, _, hd in c.attention)
 
 
-def token_flops(run: dict, context: int, logits: bool) -> float:
+def token_flops(c: Counts, context: int, logits: bool) -> float:
     """Model FLOPs of one token at ``context`` attended positions (itself
-    included): 2 per weight it multiplies through, 4 * head dim * heads per
-    attended position and attention layer, 4 * h * p * n per Mamba2 layer
-    for the SSD recurrence (decay and update of the state, and its read),
-    and the head (2 * d * vocab) only where its logits are taken."""
-    d = run["d_model"]
-    hd = run["head_dim"] or d // run["n_heads"]
-    flops = 2.0 * matmul_params(run)
-    flops += 4.0 * hd * run["n_heads"] * context * attention_layers(run)
-    if run["family"] == "hybrid":
-        di = run["ssm_expand"] * d
-        h = di // run["ssm_head_dim"]
-        flops += 4.0 * h * run["ssm_head_dim"] * run["ssm_state"] \
-            * run["n_layers"]
+    included): 2 per weight it multiplies through, ``attend_flops`` per
+    attended position, the architecture's other FLOPs (such as an SSD
+    recurrence's), and the head (2 per weight) only where its logits are
+    taken."""
+    flops = 2.0 * c.weights + attend_flops(c) * context + c.other_flops
     if logits:
-        flops += 2.0 * d * run["vocab"]
+        flops += 2.0 * c.head
     return flops
 
 
-def prompt_flops(run: dict, n: int) -> float:
+def prompt_flops(c: Counts, n: int) -> float:
     """Model FLOPs of a prompt of ``n`` real tokens, the head taken at its
     last token only: token i attends to i + 1 positions."""
-    d = run["d_model"]
-    hd = run["head_dim"] or d // run["n_heads"]
-    attend = 4.0 * hd * run["n_heads"] * attention_layers(run)
-    return (n * token_flops(run, 0, False) + attend * n * (n + 1) / 2
-            + 2.0 * d * run["vocab"])
+    return (n * token_flops(c, 0, False) + attend_flops(c) * n * (n + 1) / 2
+            + 2.0 * c.head)
 
 
-def step_flops(run: dict, running: int, context: int) -> float:
+def step_flops(c: Counts, running: int, context: int) -> float:
     """Model FLOPs of a decode step whose ``running`` tokens attend
     ``context`` real positions in all, each token's logits taken."""
-    d = run["d_model"]
-    hd = run["head_dim"] or d // run["n_heads"]
-    attend = 4.0 * hd * run["n_heads"] * attention_layers(run)
-    return running * token_flops(run, 0, True) + attend * context
+    return running * token_flops(c, 0, True) + attend_flops(c) * context
