@@ -12,7 +12,11 @@ the model to what the kernels take.
 
 The SSD scan is differentiable: ``ssd_scan`` goes through one
 ``torch.autograd.Function`` whose forward and backward are the two CUDA
-kernels for CUDA tensors and the two plain versions for CPU tensors.  Flash
+kernels for CUDA tensors and the two plain versions for CPU tensors.  B/C
+groups and a state wider than the kernel's tile take the same kernels,
+exactly by linearity (``ssd_scan``): each group's heads become a batch row
+of their own, and the state's columns split into parts of at most
+``MAX_DIM``, whose outputs add.  Flash
 and paged attention have no backward kernel: on the card they raise when
 asked to record a gradient, rather than give one without the attention.
 
@@ -42,6 +46,7 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.kernels.ssd_scan import (
     CHUNK,
+    MAX_DIM,
     check_ssd_args,
     check_ssd_bwd_args,
     ssd_scan_bwd_cuda,
@@ -150,14 +155,52 @@ class SsdScan(torch.autograd.Function):
 def ssd_scan(x: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, init_state: torch.Tensor | None = None,
              chunk: int = CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n); init_state
-    (b, h, p, n) or None; all f32 -> y (b, l, h, p), final state
-    (b, h, p, n), differentiable in every input."""
+    """x: (b, l, h, p); a: (b, l, h) log-decay; B/C: (b, l, n), or (b, l,
+    G, n) with head i reading group i // (h / G); init_state (b, h, p, n)
+    or None; all f32 -> y (b, l, h, p), final state (b, h, p, n),
+    differentiable in every input."""
     if x.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no SSD scan for device {x.device}")
+    if B.dim() == 4 or B.shape[-1] > MAX_DIM:
+        return _ssd_grouped(x, a, B, C, init_state, chunk)
     if x.device.type != "cuda":
         check_ssd_args(x, a, B, C, init_state, chunk)
     return SsdScan.apply(x, a, B, C, init_state, chunk)
+
+
+def _ssd_grouped(x, a, B, C, init_state, chunk):
+    """``ssd_scan`` with G B/C groups or a state n > ``MAX_DIM``, through
+    the one-group kernel: group g's h / G heads form batch row (b, g), and
+    n splits into equal parts of at most ``MAX_DIM`` columns; the parts'
+    outputs add and their final states join."""
+    b, l, h, p = x.shape
+    if B.dim() == 3:
+        B, C = B[:, :, None], C[:, :, None]
+    g, n = B.shape[2:]
+    parts = -(-n // MAX_DIM)
+    if h % g or n % parts:
+        raise ValueError(f"{h} heads over {g} B/C groups, state {n} in "
+                         f"{parts} parts: need whole heads and columns")
+    hg, w = h // g, n // parts
+
+    def rows(t):      # (b, l, g, ...) -> (b g, l, ...)
+        return t.transpose(1, 2).reshape(b * g, l, *t.shape[3:]).contiguous()
+
+    xg = rows(x.reshape(b, l, g, hg, p))
+    ag = rows(a.reshape(b, l, g, hg))
+    Bg, Cg = rows(B), rows(C)
+    sg = None if init_state is None else init_state.reshape(b * g, hg, p, n)
+    y, finals = 0, []
+    for i in range(parts):
+        cols = slice(i * w, (i + 1) * w)
+        yi, fi = ssd_scan(xg, ag, Bg[..., cols].contiguous(),
+                          Cg[..., cols].contiguous(),
+                          None if sg is None else sg[..., cols].contiguous(),
+                          chunk)
+        y = y + yi
+        finals.append(fi)
+    y = y.reshape(b, g, l, hg, p).transpose(1, 2).reshape(b, l, h, p)
+    return y, torch.cat(finals, dim=-1).reshape(b, h, p, n)
 
 
 def launch_counts() -> dict[str, int]:

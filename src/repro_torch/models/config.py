@@ -2,7 +2,13 @@
 
 Families: dense (llama/mistral/qwen), moe (shared+routed experts), encdec
 (seamless audio), vlm (llava backbone + patch stub), hybrid (zamba2 =
-Mamba2 backbone + shared attention block), ssm (xLSTM).
+Mamba2 backbone + shared attention block), ssm (xLSTM).  The port adds
+nemotron_h: a stack built from ``layer_pattern``, one pre-norm mixer with a
+residual per layer (Mamba2 with its conv and B/C groups, a sigmoid-routed
+relu² MoE that may hold a share of its experts, or attention).
+
+The fields after ``use_kernels`` are the port's own (the JAX package has no
+such model); their defaults leave every other family as it was.
 """
 
 from __future__ import annotations
@@ -59,6 +65,22 @@ class ModelConfig:
     # Dispatch full-sequence attention through kernels/ops.py (Pallas flash
     # kernel on TPU; pure-jnp oracle elsewhere).
     use_kernels: bool = False
+    # --- port-only: layer-pattern stacks (nemotron_h) ---
+    # one character a layer: M Mamba2, E MoE, * attention; "" otherwise.
+    # Attention without RoPE where rope_theta is 0.
+    layer_pattern: str = ""
+    mamba_heads: int = 0         # Mamba2 heads; 0 -> d_inner // ssm_head_dim
+    ssm_groups: int = 1          # B/C groups; head i reads group i // (H / G)
+    conv_kernel: int = 0         # causal conv taps over x, B, C; 0: none
+    # Mamba2's published tail: y * silu(z), then RMSNorm over each B/C
+    # group's channels, and D times the raw x; False: zamba2's (RMSNorm
+    # over di before the gate, D times the dt-scaled x)
+    gated_group_norm: bool = False
+    expert_act: str = "swiglu"   # swiglu | relu2 (routed and shared experts)
+    router: str = "softmax"      # softmax | sigmoid (top-k of score + bias)
+    routed_scale: float = 1.0    # sigmoid gates' scale after normalising
+    shared_d_ff: int = 0         # 0 -> n_shared_experts * expert_d_ff
+    experts_held: int = 0        # routed experts 0 .. held - 1; 0: all
 
     @property
     def hd(self) -> int:
@@ -66,6 +88,8 @@ class ModelConfig:
 
     @property
     def d_inner(self) -> int:
+        if self.mamba_heads:
+            return self.mamba_heads * self.ssm_head_dim
         return self.ssm_expand * self.d_model
 
     @property
@@ -76,13 +100,50 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def n_held(self) -> int:
+        """Routed experts whose weights this model holds: ids 0 ..
+        ``n_held - 1``."""
+        return self.experts_held or self.n_experts
+
+    @property
+    def shared_ff(self) -> int:
+        return self.shared_d_ff or self.n_shared_experts * self.expert_d_ff
+
+    @property
+    def moe_layers(self) -> int:
+        """Layers with routed experts."""
+        if self.layer_pattern:
+            return self.layer_pattern.count("E")
+        return self.n_layers if self.is_moe else 0
+
+    def _pattern_params(self, active: bool) -> int:
+        """A layer-pattern stack's layers: Mamba2 (projections, conv, A_log
+        and D), MoE (router, the held experts -- with ``active`` the top-k's
+        share of them -- and the shared expert) and attention."""
+        d, hd = self.d_model, self.hd
+        di, n, h = self.d_inner, self.ssm_state, self.ssm_heads
+        gn = self.ssm_groups * n
+        mamba = (d * (2 * di + 2 * gn + h) + di * d + 2 * h
+                 + self.conv_kernel * (di + 2 * gn))
+        mats = 2 if self.expert_act == "relu2" else 3
+        routed = (self.top_k * self.n_held / self.n_experts if active
+                  else self.n_held)
+        moe = (d * self.n_experts + routed * mats * d * self.expert_d_ff
+               + mats * d * self.shared_ff)
+        attn = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        per = {"M": mamba, "E": moe, "*": attn}
+        return int(sum(per[c] for c in self.layer_pattern))
+
     def param_count(self) -> int:
         """Approximate parameter count (for roofline MODEL_FLOPS)."""
         d, hd = self.d_model, self.hd
         n_q = self.n_heads * hd
         n_kv = self.n_kv_heads * hd
         attn = d * n_q + 2 * d * n_kv + n_q * d
-        if self.family == "ssm" and self.xlstm:
+        if self.layer_pattern:
+            layers = self._pattern_params(active=False)
+        elif self.family == "ssm" and self.xlstm:
             per_layer = 4 * d * d + 2 * d  # qkv+out proj + gates (approx)
             layers = self.n_layers * per_layer
         elif self.family == "hybrid":
@@ -108,7 +169,12 @@ class ModelConfig:
         return int(layers + embed)
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: only routed top-k + shared)."""
+        """Active params per token (MoE: only routed top-k + shared; of
+        held experts, the top-k's share that lands on them)."""
+        if self.layer_pattern:
+            embed = self.vocab * self.d_model * (
+                1 if self.tie_embeddings else 2)
+            return self._pattern_params(active=True) + embed
         if not self.is_moe:
             return self.param_count()
         d = self.d_model
@@ -148,6 +214,15 @@ class ModelConfig:
             name=self.name + "-smoke",
             dtype="float32",
             remat=False,
+            # a pattern stack keeps every kind of mixer, a quarter of the
+            # Mamba2 heads per B/C group and half of its experts held
+            layer_pattern="MEM*E" if self.layer_pattern else "",
+            mamba_heads=8 if self.mamba_heads else 0,
+            ssm_groups=min(self.ssm_groups, 4),
+            shared_d_ff=128 if self.shared_d_ff else 0,
+            experts_held=min(self.experts_held, 4),
         )
+        if self.layer_pattern:
+            small["n_layers"] = len(small["layer_pattern"])
         small.update(overrides)
         return replace(self, **small)

@@ -1,5 +1,6 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention (SWA / qk-norm;
-self-, bidirectional or cross-attention), SwiGLU MLP.
+self-, bidirectional or cross-attention; no RoPE where ``rope_theta`` is
+0), SwiGLU MLP, and the port's squared-ReLU MLP (nemotron_h's experts).
 
 Plain functions on tensors where the JAX package has plain functions
 (``rmsnorm``, ``apply_rope``, ``sdpa``, ``attention_fwd``, ``mlp_fwd``), and
@@ -216,7 +217,7 @@ def attention_fwd(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
-    if kv_source is None:      # RoPE only for self-attention
+    if kv_source is None and cfg.rope_theta:  # RoPE: self-attention only
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -435,3 +436,17 @@ def mlp_fwd(p: MLP, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu((x @ p.w_gate).float())
     up = (x @ p.w_up).float()
     return (gate * up).to(x.dtype) @ p.w_down
+
+
+class Relu2MLP(nn.Module):
+    """x -> relu(x @ w_up)^2 @ w_down: no gate matrix.  The square is taken
+    in f32 and rounded to the model dtype, as ``mlp_fwd``'s activation."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype,
+                 device: torch.device) -> None:
+        super().__init__()
+        self.w_up = weight((d_model, d_ff), dtype, device)
+        self.w_down = weight((d_ff, d_model), dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x @ self.w_up).square() @ self.w_down

@@ -2,8 +2,9 @@
 loss (training) and init_cache / prefill / decode_step (serving), for every
 family of the registry: dense, MoE and VLM (``Decoder``), the zamba2 hybrid
 (``Hybrid``), the seamless encoder-decoder (``EncDec``) and xLSTM
-(``XLSTM``).  Serving records no gradient: ``prefill`` and ``decode_step``
-run under ``torch.no_grad()``, whatever the parameters' ``requires_grad``.
+(``XLSTM``); and for the port's layer-pattern stack (``NemotronH``).
+Serving records no gradient: ``prefill`` and ``decode_step`` run under
+``torch.no_grad()``, whatever the parameters' ``requires_grad``.
 
 The JAX package's ``Model`` serves one sequence per call and the engine
 vmaps it over slots.  Here the batch dimension is written out: the cache
@@ -39,13 +40,15 @@ from repro_torch.models.transformer import (
     Decoder,
     EncDec,
     Hybrid,
+    NemotronH,
     seeded_init,
 )
 from repro_torch.parallel.sharding import NOSHARD, axis_size, fit
 
 # the batch (slot) axis of each tensor of a cache
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kpos": 0, "pos": 0, "ssm": 2,
-                    "ssm_tail": 1, "enc_out": 0,
+                    "ssm_tail": 1, "enc_out": 0, "ssm_state": 1,
+                    "conv_state": 1,
                     **dict.fromkeys(MLSTM_STATE + SLSTM_STATE, 1)}
 
 
@@ -57,6 +60,8 @@ def net_type(cfg: ModelConfig) -> type[nn.Module]:
     """The stack that serves ``cfg``'s family."""
     if cfg.family == "hybrid":
         return Hybrid
+    if cfg.family == "nemotron_h":
+        return NemotronH
     if cfg.family == "encdec":
         return EncDec
     if is_xlstm(cfg):
@@ -119,7 +124,7 @@ def resolve_device(device: str | torch.device) -> torch.device:
 @dataclass
 class Model:
     cfg: ModelConfig
-    decoder: Decoder | Hybrid | EncDec | XLSTM
+    decoder: Decoder | Hybrid | EncDec | XLSTM | NemotronH
     device: torch.device
 
     # ------------------------------------------------------------------
@@ -161,7 +166,7 @@ class Model:
             enc_out = net.encode(self.input_tensor(batch["frontend"], shard),
                                  shard)
             logits, aux, _ = net(tokens, enc_out, shard=shard)
-        elif cfg.family in ("hybrid", "ssm"):
+        elif cfg.family in ("hybrid", "ssm", "nemotron_h"):
             logits, aux, _ = net(tokens, shard=shard)
         else:
             prefix = batch.get("frontend")
@@ -206,7 +211,9 @@ class Model:
         ``prefill`` replaces with the encoder's output.  xLSTM keeps each
         pair's recurrent states in f32 (``MLSTM_STATE``, ``SLSTM_STATE``:
         pair axis first, batch second; the stabilisers at -1e30) and a
-        position per row."""
+        position per row.  A layer-pattern stack keeps KV per attention
+        layer, each Mamba2 layer's state in f32 (``ssm_state``) and its
+        conv's last inputs in the model dtype (``conv_state``)."""
         return self._cache(batch, max_seq, page_size, src_len, self.device)
 
     def _cache(self, batch: int, max_seq: int, page_size: int, src_len: int,
@@ -228,6 +235,8 @@ class Model:
         if cfg.family == "hybrid":
             n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
             n_kv, kv_len = n_super, max_seq
+        elif cfg.layer_pattern:
+            n_kv, kv_len = cfg.layer_pattern.count("*"), max_seq
         else:
             n_kv = cfg.n_layers
             kv_len = max_seq if cfg.swa_window == 0 else min(max_seq,
@@ -249,6 +258,15 @@ class Model:
                 cache["ssm_tail"] = torch.zeros((n_tail,) + state,
                                                 dtype=torch.float32,
                                                 device=dev)
+        if cfg.layer_pattern:
+            n_m = cfg.layer_pattern.count("M")
+            cache["ssm_state"] = torch.zeros(
+                (n_m, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                dtype=torch.float32, device=dev)
+            cache["conv_state"] = torch.zeros(
+                (n_m, batch, cfg.conv_kernel - 1, cfg.d_inner
+                 + 2 * cfg.ssm_groups * cfg.ssm_state),
+                dtype=dtype_of(cfg), device=dev)
         if cfg.family == "encdec":
             cache["enc_out"] = torch.zeros((batch, src_len, cfg.d_model),
                                            dtype=dtype_of(cfg), device=dev)

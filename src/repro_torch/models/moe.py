@@ -17,6 +17,19 @@ each token's k outputs are weighted by their gates (0 for a dropped pair)
 and summed in choice order, with no atomics.  Nothing is read back to the
 host.
 
+The port's nemotron_h options (``ModelConfig``): ``router="sigmoid"``, f32
+sigmoid scores, the top k of scores plus the correction bias
+``router_bias`` (E,), gates the chosen scores over their sum times
+``routed_scale``, no aux loss (the bias balances the experts);
+``expert_act="relu2"``, experts and shared expert relu(x W_up)^2 W_down;
+``experts_held`` < E, a layer that holds experts 0 .. ``experts_held`` - 1
+of the E its router scores (expert parallelism's share of one chip): it
+routes over all E, sends the pairs of experts it does not hold nowhere, and
+runs its own experts alone, so that its output is its experts' part of the
+layer's plus the shared expert.
+``moe_fwd`` can write each held expert's pair count (``counts``) in place
+of a sum it takes anyway.  These options run unsharded.
+
 Under a mesh (``shard``, ``parallel.sharding.MeshRules``) the routed experts
 run on local shards (``moe_sharded``): each rank routes its own tokens'
 groups, fills the reference's (G, E, C, d) capacity layout (its
@@ -33,35 +46,54 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, dtype_of, mlp_fwd, weight
+from repro_torch.models.layers import (
+    MLP,
+    Relu2MLP,
+    dtype_of,
+    mlp_fwd,
+    weight,
+)
 from repro_torch.parallel.sharding import NOSHARD, P, _axes, axis_size, fit
 
 MOE_GROUP = 1024   # tokens per dispatch group (GShard/GLaM-style)
 
 
 class MoE(nn.Module):
-    """``router`` (d, E) f32; ``w_gate``/``w_up`` (E, d, f) and ``w_down``
-    (E, f, d) in the model dtype; ``shared`` an ``MLP`` of width
-    ``n_shared_experts * f`` when the config has shared experts."""
+    """``router`` (d, E) f32 (with sigmoid routing also ``router_bias``
+    (E,) f32, 0); ``w_gate`` (SwiGLU only) / ``w_up`` (E_h, d, f) and
+    ``w_down`` (E_h, f, d) in the model dtype, E_h the experts held;
+    ``shared`` an ``MLP`` (``Relu2MLP``) of width ``cfg.shared_ff`` when
+    the config has shared experts."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
         dt = dtype_of(cfg)
         d, e, f = cfg.d_model, cfg.n_experts, cfg.expert_d_ff
+        held = cfg.n_held
         self.router = weight((d, e), torch.float32, device)
-        self.w_gate = weight((e, d, f), dt, device)
-        self.w_up = weight((e, d, f), dt, device)
-        self.w_down = weight((e, f, d), dt, device)
-        self.shared = (MLP(d, cfg.n_shared_experts * f, dt, device)
+        if cfg.router == "sigmoid":
+            self.router_bias = nn.Parameter(
+                torch.zeros(e, dtype=torch.float32, device=device),
+                requires_grad=False)
+        if cfg.expert_act == "swiglu":
+            self.w_gate = weight((held, d, f), dt, device)
+        self.w_up = weight((held, d, f), dt, device)
+        self.w_down = weight((held, f, d), dt, device)
+        ffn = Relu2MLP if cfg.expert_act == "relu2" else MLP
+        self.shared = (ffn(d, cfg.shared_ff, dt, device)
                        if cfg.n_shared_experts > 0 else None)
 
 
-def _expert_swiglu(p: MoE, rows: torch.Tensor,
-                   offs: torch.Tensor) -> torch.Tensor:
-    """rows (N, d) lined up expert by expert, ``offs`` (E,) int32 the end
-    of each expert's rows -> each row through its expert's SwiGLU, (N, d)
-    in the rows' dtype.  The casts are ``mlp_fwd``'s: products in the
-    model dtype (accumulated in f32), the gate and its product in f32."""
+def _expert_ffn(p: MoE, rows: torch.Tensor,
+                offs: torch.Tensor) -> torch.Tensor:
+    """rows (N, d) lined up expert by expert, ``offs`` (E_h,) int32 the end
+    of each held expert's rows -> each row through its expert's SwiGLU (or
+    relu², without ``w_gate``), (N, d) in the rows' dtype; rows past the
+    last end are no expert's.  The casts are ``mlp_fwd``'s: products in the
+    model dtype (accumulated in f32), the activation in f32."""
+    if not hasattr(p, "w_gate"):
+        up = F.grouped_mm(rows, p.w_up, offs=offs)
+        return F.grouped_mm(torch.relu(up).square(), p.w_down, offs=offs)
     gate = F.silu(F.grouped_mm(rows, p.w_gate, offs=offs).float())
     up = F.grouped_mm(rows, p.w_up, offs=offs).float()
     hidden = (gate * up).to(rows.dtype)
@@ -69,14 +101,18 @@ def _expert_swiglu(p: MoE, rows: torch.Tensor,
 
 
 def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
-            group_size: int = MOE_GROUP, shard=NOSHARD
+            group_size: int = MOE_GROUP, shard=NOSHARD,
+            counts: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar).
+    """x: (B, S, d) -> (out (B, S, d), aux_loss f32 scalar; the float 0.0
+    for sigmoid routing).
 
     The B * S tokens form groups of ``min(group_size, B * S)`` in order;
     each expert takes at most ``cap`` (token, choice) pairs of a group,
     counted in token-major, choice-minor order with the choices in
-    descending gate order, and drops the rest."""
+    descending gate order, and drops the rest.  ``counts`` (E_h,) int64
+    receives the pairs routed to each held expert, dropped ones
+    included."""
     if shard.sharded:
         return moe_sharded(p, cfg, x, group_size, shard)
     b, s, d = x.shape
@@ -90,17 +126,27 @@ def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
         xt = F.pad(xt, (0, 0, 0, n_g * group - t))
 
     logits = xt.float().reshape(n_g, group, d) @ p.router     # (G, g, E)
-    probs = torch.softmax(logits, dim=-1)
+    if cfg.router == "sigmoid":
+        scores = torch.sigmoid(logits)
+        idx = torch.topk(scores + p.router_bias, k, dim=-1,
+                         sorted=True).indices                  # (G, g, k)
+        gate = scores.gather(-1, idx)
+        gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-20) \
+            * cfg.routed_scale
+        aux = z = 0.0
+    else:
+        probs = torch.softmax(logits, dim=-1)
 
-    # --- aux losses (over every row of the groups, padding included) ---
-    top1 = F.one_hot(probs.argmax(dim=-1), e).float()
-    aux = cfg.router_aux_coef * e * torch.sum(top1.mean(dim=(0, 1))
-                                              * probs.mean(dim=(0, 1)))
-    z = cfg.router_z_coef * torch.logsumexp(logits, dim=-1).square().mean()
+        # --- aux losses (over every row of the groups, padding included)
+        top1 = F.one_hot(probs.argmax(dim=-1), e).float()
+        aux = cfg.router_aux_coef * e * torch.sum(top1.mean(dim=(0, 1))
+                                                  * probs.mean(dim=(0, 1)))
+        z = cfg.router_z_coef * torch.logsumexp(logits,
+                                                dim=-1).square().mean()
 
-    # --- top-k routing with per-group capacity ---
-    gate, idx = torch.topk(probs, k, dim=-1, sorted=True)     # (G, g, k)
-    gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
+        # --- top-k routing with per-group capacity ---
+        gate, idx = torch.topk(probs, k, dim=-1, sorted=True)  # (G, g, k)
+        gate = gate / (gate.sum(dim=-1, keepdim=True) + 1e-9)
     cap = int(max(k, round(group * cfg.capacity_factor * k / e)))
 
     # pair j = (token, choice) = (j // k, j % k) over all groups.  A stable
@@ -110,33 +156,42 @@ def moe_fwd(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     pair_group = torch.arange(n, device=x.device) // (group * k)
     key = idx.reshape(n) * n_g + pair_group
     key_sorted, order = torch.sort(key, stable=True)
-    counts = torch.zeros(e * n_g, dtype=torch.int64, device=x.device)
-    counts.scatter_add_(0, key, torch.ones_like(key))
-    starts = counts.cumsum(0) - counts
+    pair_counts = torch.zeros(e * n_g, dtype=torch.int64, device=x.device)
+    pair_counts.scatter_add_(0, key, torch.ones_like(key))
+    starts = pair_counts.cumsum(0) - pair_counts
     slot = torch.arange(n, device=x.device) - starts[key_sorted]
     keep = torch.empty_like(slot).scatter_(0, order, slot) < cap
 
-    # every pair runs through its expert (a dropped one is weighted 0)
-    offs = counts.view(e, n_g).sum(dim=1).cumsum(0).to(torch.int32)
-    y_sorted = _expert_swiglu(p, xt[order // k], offs)
+    # every pair of a held expert runs through it (a dropped one is
+    # weighted 0); the others sort after them, past the last end
+    held = cfg.n_held
+    per_group = pair_counts.view(e, n_g)[:held]
+    per_expert = per_group.sum(dim=1) if counts is None \
+        else torch.sum(per_group, dim=1, out=counts)
+    offs = per_expert.cumsum(0).to(torch.int32)
+    y_sorted = _expert_ffn(p, xt[order // k], offs)
     y = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
     weights = torch.where(keep, gate.reshape(n), 0.0)
-    out = (y.float().view(-1, k, d) * weights.view(-1, k, 1)).sum(dim=1)
-    out = out[:t].to(x.dtype)
+    out = y.float().view(-1, k, d) * weights.view(-1, k, 1)
+    if held < e:
+        out = torch.where((idx < held).view(-1, k, 1), out, 0.0)
+    out = out.sum(dim=1)[:t].to(x.dtype)
 
     if p.shared is not None:
-        out = out + mlp_fwd(p.shared, xt[:t])
+        out = out + p.shared(xt[:t])
     return out.reshape(b, s, d), aux + z
 
 
 def moe_per_row(p: MoE, cfg: ModelConfig, x: torch.Tensor,
-                group_size: int = MOE_GROUP, shard=NOSHARD
+                group_size: int = MOE_GROUP, shard=NOSHARD,
+                counts: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``moe_fwd`` with each row of x (B, S, d) forming its own groups, as
     the JAX package's engine has it (it maps the one-sequence model over
     the slots): a decode step's token is a group of one, dropless.  Each
     row is padded at its end to whole groups; one call serves all rows.
-    The aux loss is taken over all rows' groups together."""
+    The aux loss is taken over all rows' groups together; ``counts`` as
+    ``moe_fwd``'s."""
     b, s, d = x.shape
     group = min(group_size, s)
     n_g = -(-s // group)
@@ -146,7 +201,7 @@ def moe_per_row(p: MoE, cfg: ModelConfig, x: torch.Tensor,
     if shard.sharded:
         out, aux = moe_sharded(p, cfg, rows, group, shard)
     else:
-        out, aux = moe_fwd(p, cfg, rows, group)
+        out, aux = moe_fwd(p, cfg, rows, group, counts=counts)
     return out.reshape(b, n_g * group, d)[:, :s], aux
 
 

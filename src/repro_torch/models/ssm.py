@@ -7,7 +7,12 @@ optional initial state, the scan through ``ops.ssd_scan``: the CUDA kernel on
 the card, the chunked plain version on the CPU) and ``mamba2_step`` (the
 O(1) decode update, plain PyTorch ops, as the JAX package has no kernel
 there).  As in the reference: no short conv1d in front of x/B/C, one B/C
-group shared by all heads, the state (b, h, p, n) in f32.
+group shared by all heads, the state (b, h, p, n) in f32.  The port's
+nemotron_h options (``ModelConfig``): ``conv_kernel`` taps of a causal
+depthwise conv with bias over x, B and C, then silu (``causal_conv``; its
+state, the last taps - 1 inputs, rolled in place); ``ssm_groups`` B/C
+groups, head i reading group i // (H / G); ``gated_group_norm``, the
+published tail.
 
 xLSTM: ``MLSTM`` / ``mlstm_fwd`` (matrix memory, exponential gating) and
 ``SLSTM`` / ``slstm_fwd`` (scalar memory with a per-head dense hidden-state
@@ -31,7 +36,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dtype_of, weight
+from repro_torch.models.layers import RMSNorm, dtype_of, rmsnorm, weight
 from repro_torch.parallel.sharding import (
     NOSHARD,
     P,
@@ -43,16 +48,23 @@ from repro_torch.parallel.sharding import (
 
 
 class Mamba2(nn.Module):
-    """in_proj -> [z (di), x (di), B (n), C (n), dt (h)]; out_proj (di, d).
-    ``A_log``, ``D`` and ``dt_bias`` stay f32 in a bf16 model and start as
-    the reference's: log(linspace(1, 16, h)), ones, zeros."""
+    """in_proj -> [z (di), x (di), B (G n), C (G n), dt (h)]; out_proj (di,
+    d); with a conv, ``conv_w`` (taps, di + 2 G n) and ``conv_b`` (di + 2 G
+    n) in the model dtype (the bias 0).  ``A_log``, ``D`` and ``dt_bias``
+    stay f32 in a bf16 model and start as the reference's: log(linspace(1,
+    16, h)), ones, zeros."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
         super().__init__()
         dt = dtype_of(cfg)
         d, di = cfg.d_model, cfg.d_inner
-        n, h = cfg.ssm_state, cfg.ssm_heads
-        self.in_proj = weight((d, 2 * di + 2 * n + h), dt, device)
+        gn, h = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads
+        self.in_proj = weight((d, 2 * di + 2 * gn + h), dt, device)
+        if cfg.conv_kernel:
+            self.conv_w = weight((cfg.conv_kernel, di + 2 * gn), dt, device)
+            self.conv_b = nn.Parameter(torch.zeros(di + 2 * gn, dtype=dt,
+                                                   device=device),
+                                       requires_grad=False)
         self.out_proj = weight((di, d), dt, device)
         f32 = dict(dtype=torch.float32, device=device)
         self.A_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, h,
@@ -65,18 +77,50 @@ class Mamba2(nn.Module):
 
 
 def _split_mamba_proj(cfg: ModelConfig, proj: torch.Tensor):
-    di, n = cfg.d_inner, cfg.ssm_state
-    z = proj[..., :di]
-    x = proj[..., di:2 * di]
-    B = proj[..., 2 * di:2 * di + n]
-    C = proj[..., 2 * di + n:2 * di + 2 * n]
-    dt = proj[..., 2 * di + 2 * n:]
-    return z, x, B, C, dt
+    """z, xBC (x, B and C, the conv's input) and dt."""
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    return proj[..., :di], proj[..., di:2 * di + 2 * gn], \
+        proj[..., 2 * di + 2 * gn:]
+
+
+def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
+    """x (..., di) and B, C in f32: (..., n) with one group, else (..., G,
+    n)."""
+    di, g, n = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    B, C = xbc[..., di:di + g * n].float(), xbc[..., di + g * n:].float()
+    if g > 1:
+        B, C = B.unflatten(-1, (g, n)), C.unflatten(-1, (g, n))
+    return xbc[..., :di], B, C
+
+
+def causal_conv(p: Mamba2, xbc: torch.Tensor,
+                state: torch.Tensor | None = None) -> torch.Tensor:
+    """silu of the causal depthwise conv over xbc (b, l, ch) with bias, in
+    f32 -> (b, l, ch).  ``state`` (b, taps - 1, ch), the inputs before xbc
+    (zeros where None), takes the last taps - 1 inputs, in place: a decode
+    step rolls it, a prefill leaves its prompt's tail."""
+    taps = p.conv_w.shape[0]
+    b, l, ch = xbc.shape
+    prev = state if state is not None else xbc.new_zeros((b, taps - 1, ch))
+    full = torch.cat([prev, xbc], dim=1)                     # (b, l+t-1, ch)
+    win = full.float().unfold(1, taps, 1)                    # (b, l, ch, t)
+    out = (win * p.conv_w.t().float()).sum(-1) + p.conv_b.float()
+    if state is not None:
+        state.copy_(full[:, l:])
+    return F.silu(out)
 
 
 def _gate_and_project(p: Mamba2, cfg: ModelConfig, y: torch.Tensor,
                       z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The shared tail of both paths: cast, gated RMSNorm, out_proj."""
+    """The shared tail of both paths.  zamba2: cast, RMSNorm, the gate,
+    out_proj.  ``gated_group_norm``: the gate on f32 y, RMSNorm over each
+    group's channels, cast, out_proj."""
+    if cfg.gated_group_norm:
+        g = cfg.ssm_groups
+        y = y * F.silu(z.float())
+        y = rmsnorm(y.unflatten(-1, (g, -1)), p.norm.scale.view(g, -1),
+                    cfg.norm_eps).flatten(-2)
+        return y.to(dtype) @ p.out_proj
     y = p.norm(y.to(dtype))
     y = y * F.silu(z.float()).to(dtype)
     return y @ p.out_proj
@@ -89,19 +133,24 @@ def _head_axis(shard, h: int):
 
 def mamba2_fwd(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
                state: torch.Tensor | None = None, chunk: int = 128,
-               shard=NOSHARD) -> tuple[torch.Tensor, torch.Tensor]:
+               shard=NOSHARD, conv: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence Mamba2 block.  u: (b, l, d) -> (y (b, l, d), final
     state (b, h, p, n) f32).  A ragged l is padded inside the scan with
-    a = 0 and x = 0, as the reference pads it."""
+    a = 0 and x = 0, as the reference pads it.  With a conv, ``conv`` is
+    its state (``causal_conv``), updated in place."""
     b, l, _ = u.shape
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     proj = u @ p.in_proj
-    z, x, B, C, dt = _split_mamba_proj(cfg, proj)
+    z, xbc, dt = _split_mamba_proj(cfg, proj)
+    if cfg.conv_kernel:
+        xbc = causal_conv(p, xbc, conv)
+    x, Bf, Cf = _split_xbc(cfg, xbc)
     dt = F.softplus(dt.float() + p.dt_bias)                      # (b,l,h)
     A = -torch.exp(p.A_log)                                      # (h,)
     a = dt * A                                                   # (b,l,h)
-    xh = shard.heads(x, (b, l, h, pdim)).float() * dt[..., None]  # fold dt
-    Bf, Cf = B.float(), C.float()
+    xr = shard.heads(x, (b, l, h, pdim)).float()
+    xh = xr * dt[..., None]                                      # fold dt
 
     def scan(xh, a, Bf, Cf, state):
         return ops.ssd_scan(xh.contiguous(), a, Bf.contiguous(),
@@ -120,30 +169,42 @@ def mamba2_fwd(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
                                grads=(None, None, bc, bc, None))
     else:
         y, final = scan(xh, a, Bf, Cf, state)
-    y = y + xh * p.D[None, None, :, None]
+    y = y + (xr if cfg.gated_group_norm else xh) * p.D[None, None, :, None]
     return _gate_and_project(p, cfg, y.reshape(b, l, cfg.d_inner), z,
                              u.dtype), final
 
 
 def mamba2_step(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-                state: torch.Tensor, shard=NOSHARD
+                state: torch.Tensor, shard=NOSHARD,
+                conv: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """O(1) decode step.  u: (b, 1, d); state: (b, h, p, n) f32 ->
-    (y (b, 1, d), new state)."""
+    (y (b, 1, d), new state).  With a conv, ``conv`` (b, taps - 1, ch) is
+    its state, rolled in place."""
     b = u.shape[0]
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     proj = u[:, 0] @ p.in_proj                                   # (b, .)
-    z, x, B, C, dt = _split_mamba_proj(cfg, proj)
+    z, xbc, dt = _split_mamba_proj(cfg, proj)
+    if cfg.conv_kernel:
+        xbc = causal_conv(p, xbc[:, None], conv)[:, 0]
+    x, Bf, Cf = _split_xbc(cfg, xbc)
     dt = F.softplus(dt.float() + p.dt_bias)                      # (b,h)
     A = -torch.exp(p.A_log)
     da = torch.exp(dt * A)                                       # (b,h)
-    xh = shard.heads(x, (b, h, pdim)).float() * dt[..., None]
+    xr = shard.heads(x, (b, h, pdim)).float()
+    xh = xr * dt[..., None]
+    # one B and C for every head, or each head its group's
+    ein = ("bhp,bn->bhpn", "bhpn,bn->bhp")
+    if cfg.ssm_groups > 1:
+        Bf, Cf = (t.repeat_interleave(h // cfg.ssm_groups, dim=1)
+                  for t in (Bf, Cf))
+        ein = ("bhp,bhn->bhpn", "bhpn,bhn->bhp")
 
     def update(state, da, xh, Bf, Cf):
         # s = s * da + x (x) B
         new_state = (state * da[..., None, None]
-                     + torch.einsum("bhp,bn->bhpn", xh, Bf))
-        return new_state, torch.einsum("bhpn,bn->bhp", new_state, Cf)
+                     + torch.einsum(ein[0], xh, Bf))
+        return new_state, torch.einsum(ein[1], new_state, Cf)
 
     if shard.sharded:
         ba, hx = shard.batch_axes, _head_axis(shard, h)
@@ -151,11 +212,11 @@ def mamba2_step(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
                  (ba, None), (ba, None))
         outs = (fit(shard.mesh, tuple(state.shape), specs[0]),
                 fit(shard.mesh, tuple(xh.shape), specs[2]))
-        new_state, y = shard.local(update, (state, da, xh, B.float(),
-                                            C.float()), specs, outs)
+        new_state, y = shard.local(update, (state, da, xh, Bf, Cf), specs,
+                                   outs)
     else:
-        new_state, y = update(state, da, xh, B.float(), C.float())
-    y = y + xh * p.D[None, :, None]
+        new_state, y = update(state, da, xh, Bf, Cf)
+    y = y + (xr if cfg.gated_group_norm else xh) * p.D[None, :, None]
     out = _gate_and_project(p, cfg, y.reshape(b, cfg.d_inner), z, u.dtype)
     return out[:, None], new_state
 
@@ -170,19 +231,21 @@ class MambaLayer(nn.Module):
         self.mamba = Mamba2(cfg, device)
 
     def forward(self, x: torch.Tensor, state: torch.Tensor | None = None,
-                shard=NOSHARD) -> torch.Tensor:
+                shard=NOSHARD, conv: torch.Tensor | None = None
+                ) -> torch.Tensor:
         """Without ``state``: the full sequence from a zero state.  With
         it: one token steps the state, a longer slab scans from it; either
         way the new state is written into ``state`` in place (the JAX
-        package returns a new array)."""
+        package returns a new array), and a conv's state into ``conv``."""
         h = self.ln(x)
         if state is None:
             y, _ = mamba2_fwd(self.mamba, self.cfg, h, shard=shard)
             return x + shard.act(y, "act")
         if x.shape[1] == 1:
-            y, new = mamba2_step(self.mamba, self.cfg, h, state, shard)
+            y, new = mamba2_step(self.mamba, self.cfg, h, state, shard, conv)
         else:
-            y, new = mamba2_fwd(self.mamba, self.cfg, h, state, shard=shard)
+            y, new = mamba2_fwd(self.mamba, self.cfg, h, state, shard=shard,
+                                conv=conv)
         shard.write(state, new)
         return x + shard.act(y, "act")
 

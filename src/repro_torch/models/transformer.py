@@ -3,7 +3,9 @@ norm GQA attention plus SwiGLU MLP; MoE: the MLP replaced by shared plus
 routed experts; VLM: the dense stack after the patch embeddings), the
 zamba2 hybrid (a Mamba2 backbone with ONE parameter-shared attention+MLP
 block applied after every ``attn_every`` layers), the seamless encoder-
-decoder and the xLSTM stack, each with an optional cache.
+decoder and the xLSTM stack, each with an optional cache; and the port's
+own ``NemotronH``, a stack built from a layer pattern (no JAX
+counterpart).
 
 Counterparts of the JAX package's ``transformer.py``: ``seeded_init`` (the
 ``*_init`` functions' scheme), ``ring_info`` (the ring-buffer bookkeeping
@@ -132,13 +134,14 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dt, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                kv_cache: dict | None = None, shard=NOSHARD
+                kv_cache: dict | None = None, shard=NOSHARD,
+                counts: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | float]:
         """Returns (x, aux): the MoE layer's aux and z losses (f32 scalar),
         or 0.0.  With a cache every row forms its own MoE groups, as the
         JAX package's engine decodes (one sequence per call, mapped over
         the slots); without one the rows' tokens are grouped together, as
-        its ``decoder_fwd`` does."""
+        its ``decoder_fwd`` does.  ``counts``: ``moe.moe_fwd``'s."""
         x = x + shard.act(self.attn(self.ln1(x), positions, kv_cache,
                                     shard=shard), "act")
         h = self.ln2(x)
@@ -147,7 +150,7 @@ class DecoderLayer(nn.Module):
                 h = shard.act(h, "ffn_in")
             return x + shard.act(self.mlp(h), "act"), 0.0
         moe = moe_fwd if kv_cache is None else moe_per_row
-        out, aux = moe(self.moe, self.cfg, h, shard=shard)
+        out, aux = moe(self.moe, self.cfg, h, shard=shard, counts=counts)
         return x + shard.act(out, "act"), aux
 
 
@@ -178,7 +181,10 @@ class Decoder(nn.Module):
 
         tokens: (B, S) int.  cache: {"k"/"v": (L,B,kv_len,Hkv,hd), "kpos":
         (B,kv_len), "pos": (B,), "page_size": int} for serving; its k/v are
-        written in place and the returned cache shares them.  ``fresh``
+        written in place and the returned cache shares them.  An MoE
+        cache may carry ``"expert_counts"`` (L, E_h) int64, which each layer
+        overwrites with its held experts' pair counts (the serving engine
+        adds it).  ``fresh``
         says every row of the cache is at position 0.  prefix_embeds
         (B, F, d) go in front of the token embeddings (cast to the model
         dtype); the positions, the ring and ``pos`` then cover F + S.
@@ -200,9 +206,11 @@ class Decoder(nn.Module):
             page = cache["page_size"] if cfg.swa_window == 0 else 0
             ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
                                        cache["kpos"], fresh, page, shard)
+            counts = cache.get("expert_counts")
             for l, layer in enumerate(self.layers):
                 kv = {"k": cache["k"][l], "v": cache["v"][l], **ring}
-                x, a = layer(x, ring["q_pos"], kv, shard)
+                x, a = layer(x, ring["q_pos"], kv, shard,
+                             None if counts is None else counts[l])
                 aux = aux + a
             # advance by the full written slab
             new_cache = {"k": cache["k"], "v": cache["v"],
@@ -281,6 +289,107 @@ class Hybrid(nn.Module):
             x = x[:, -1:]      # serving prefill: head for last token only
         x = self.ln_f(x)
         return shard.act(x @ self.lm_head, "logits"), 0.0, new_cache
+
+
+class AttentionLayer(nn.Module):
+    """A pattern stack's attention layer: pre-norm attention, residual."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, dtype_of(cfg), device)
+        self.attn = Attention(cfg, device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                kv_cache: dict | None = None) -> torch.Tensor:
+        return x + self.attn(self.ln(x), positions, kv_cache)
+
+
+class MoELayer(nn.Module):
+    """A pattern stack's expert layer: pre-norm ``MoE``, residual."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        self.ln = RMSNorm(cfg.d_model, cfg.norm_eps, dtype_of(cfg), device)
+        self.moe = MoE(cfg, device)
+
+    def forward(self, x: torch.Tensor, per_row: bool = False,
+                counts: torch.Tensor | None = None) -> torch.Tensor:
+        """``per_row``: each row forms its own groups (serving)."""
+        moe = moe_per_row if per_row else moe_fwd
+        return x + moe(self.moe, self.cfg, self.ln(x), counts=counts)[0]
+
+
+PATTERN_LAYERS = {"M": MambaLayer, "E": MoELayer, "*": AttentionLayer}
+
+
+class NemotronH(nn.Module):
+    """nemotron_h: embedding; one layer per character of
+    ``cfg.layer_pattern`` (M: pre-norm Mamba2, E: pre-norm MoE, *: pre-norm
+    attention, each with a residual); final norm and an untied head.  Runs
+    unsharded (``shard`` must be ``NOSHARD``)."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device) -> None:
+        super().__init__()
+        if cfg.family != "nemotron_h" or not cfg.layer_pattern:
+            raise ValueError(f"{cfg.name}: not a layer-pattern config")
+        self.cfg = cfg
+        dt = dtype_of(cfg)
+        self.embed = weight((cfg.vocab, cfg.d_model), dt, device)
+        self.layers = nn.ModuleList(PATTERN_LAYERS[c](cfg, device)
+                                    for c in cfg.layer_pattern)
+        self.ln_f = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
+        self.lm_head = weight((cfg.d_model, cfg.vocab), dt, device)
+
+    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
+                last_only: bool = False, fresh: bool = False, shard=NOSHARD
+                ) -> tuple[torch.Tensor, float, dict | None]:
+        """Returns (logits, 0.0, new_cache).
+
+        cache: {"ssm_state": (M, B, H, P, N) f32 and "conv_state" (M, B,
+        taps - 1, di + 2 G N) per Mamba2 layer, "k"/"v": (A, B, max_seq,
+        Hkv, hd) per attention layer, "kpos", "pos", "page_size", and
+        optionally "expert_counts" (E, E_h) int64 per MoE layer}; every
+        state is written in place and the returned cache shares them.  One
+        token steps every Mamba2 layer; a longer slab runs its conv and
+        scans (the SSD kernel) from the cached states.
+        """
+        if shard.sharded:
+            raise NotImplementedError(f"{self.cfg.name}: a layer-pattern "
+                                      "stack runs unsharded")
+        cfg = self.cfg
+        x = shard.embed(self.embed, tokens)
+        if cache is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+            for layer in self.layers:
+                if isinstance(layer, AttentionLayer):
+                    x = remat(cfg, layer, x, positions)
+                else:
+                    x = remat(cfg, layer, x)
+            new_cache = None
+        else:
+            pos = cache["pos"]
+            ring, new_kpos = ring_info(pos, x.shape[1], cache["k"].shape[2],
+                                       cache["kpos"], fresh,
+                                       cache["page_size"])
+            counts = cache.get("expert_counts")
+            seen = dict.fromkeys(PATTERN_LAYERS, 0)
+            for c, layer in zip(cfg.layer_pattern, self.layers):
+                i = seen[c]
+                seen[c] += 1
+                if c == "M":
+                    x = layer(x, cache["ssm_state"][i],
+                              conv=cache["conv_state"][i])
+                elif c == "E":
+                    x = layer(x, True, None if counts is None
+                              else counts[i])
+                else:
+                    kv = {"k": cache["k"][i], "v": cache["v"][i], **ring}
+                    x = layer(x, ring["q_pos"], kv)
+            new_cache = dict(cache, pos=pos + x.shape[1], kpos=new_kpos)
+        if last_only:
+            x = x[:, -1:]      # serving prefill: head for last token only
+        return self.ln_f(x) @ self.lm_head, 0.0, new_cache
 
 
 class EncoderLayer(nn.Module):

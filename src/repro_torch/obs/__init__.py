@@ -23,7 +23,10 @@ from repro_torch.obs.metrics import (  # noqa: F401
     collect_metrics,
 )
 from repro_torch.obs.hostspans import (  # noqa: F401
+    EXPERT_STEPS,
     HOST_SPANS,
+    ExpertStep,
+    ExpertSteps,
     HostSpan,
     HostSpans,
     to_profiler_ns,

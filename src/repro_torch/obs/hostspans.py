@@ -21,6 +21,12 @@ the host was doing while the device sat idle.  The names::
                        the device to finish the step
     engine.flush     the step's events into the sink, the DPU's advance
 
+Beside the spans, :data:`EXPERT_STEPS` keeps each decode step's counts of
+an MoE model's routing, as the step's read-back brings them to the host
+(``InferenceEngine._step``): the pairs its rows routed to the experts held
+here and the held experts that took at least one, summed over the MoE
+layers.
+
 Times are ``time.perf_counter_ns()``.  Recording is always on and draws
 nothing from the control loop: a span is two clock reads and one tuple
 appended to a ring of :data:`CAPACITY` closed spans, which keeps the
@@ -53,18 +59,49 @@ class HostSpan(NamedTuple):
     node: int        # the engine's node
 
 
-class HostSpans:
+class _Ring:
+    """A bounded ring of records, oldest first, each a tuple stored as it
+    ends, with its start and end times (``perf_counter_ns``) at positions
+    ``START`` and ``END``; it keeps the newest and counts what it drops."""
+
+    START = END = 0
+
+    def __init__(self, capacity: int = CAPACITY) -> None:
+        self.capacity = capacity
+        self._ring: deque = deque(maxlen=capacity)
+        self._stored = 0          # records stored, ever
+
+    def _store(self, record: tuple) -> None:
+        self._ring.append(record)
+        self._stored += 1
+
+    @property
+    def dropped(self) -> int:
+        """Records the ring no longer holds."""
+        return max(self._stored - self.capacity, 0)
+
+    def _within(self, t0: int, t1: int) -> list | None:
+        """The records that start at or after ``t0`` and end at or before
+        ``t1``; None, never a part, where the ring may have dropped one:
+        it holds every record that ended after its oldest one did."""
+        if self.dropped and t0 <= self._ring[0][self.END]:
+            return None
+        return [r for r in self._ring
+                if r[self.START] >= t0 and r[self.END] <= t1]
+
+
+class HostSpans(_Ring):
     """A bounded ring of closed host-clock spans, oldest first.  ``open``
     nests a span in the innermost open one and ``close`` ends it;
     ``begin`` opens a span outside the nesting (a request's wait, which
     outlives its iteration) and ``end`` ends that.  A handle is
     ``(index, name, start, parent, rid, node)``."""
 
+    START, END = 2, 3
+
     def __init__(self, capacity: int = CAPACITY) -> None:
-        self.capacity = capacity
-        self._ring: deque = deque(maxlen=capacity)
+        super().__init__(capacity)
         self._index = count()
-        self._closed = 0          # spans stored, ever
         self._current = -1        # index of the innermost open span
 
     def open(self, name: str, rid: int = -1, node: int = 0) -> tuple:
@@ -78,8 +115,7 @@ class HostSpans:
         # repro-lint: allow(wall-clock): host-clock span, observe-only
         end = perf_counter_ns()
         self._current = h[3]
-        self._closed += 1
-        self._ring.append((h[0], h[1], h[2], end, h[3], h[4], h[5]))
+        self._store((h[0], h[1], h[2], end, h[3], h[4], h[5]))
 
     def begin(self, name: str, rid: int = -1, node: int = 0) -> tuple:
         # repro-lint: allow(wall-clock): host-clock span, observe-only
@@ -88,29 +124,45 @@ class HostSpans:
     def end(self, h: tuple) -> None:
         # repro-lint: allow(wall-clock): host-clock span, observe-only
         end = perf_counter_ns()
-        self._closed += 1
-        self._ring.append((h[0], h[1], h[2], end, h[3], h[4], h[5]))
-
-    @property
-    def dropped(self) -> int:
-        """Closed spans the ring no longer holds."""
-        return max(self._closed - self.capacity, 0)
+        self._store((h[0], h[1], h[2], end, h[3], h[4], h[5]))
 
     def within(self, t0: int, t1: int) -> list[HostSpan] | None:
-        """The spans that start at or after ``t0`` and end at or before
-        ``t1`` (``perf_counter_ns``), by start; None, never a part, where
-        the ring may have dropped one: spans are stored as they end, so it
-        holds every span that ended after its oldest one did."""
-        if self.dropped and t0 <= self._ring[0][3]:
+        """The spans inside [t0, t1] (``perf_counter_ns``), by start; None
+        where the ring may have dropped one."""
+        kept = self._within(t0, t1)
+        if kept is None:
             return None
-        out = [HostSpan._make(s) for s in self._ring
-               if s[2] >= t0 and s[3] <= t1]
+        out = [HostSpan._make(s) for s in kept]
         out.sort(key=lambda s: (s.start, s.index))
         return out
 
 
 #: the process's record: every engine writes to it, readers outlive them
 HOST_SPANS = HostSpans()
+
+
+class ExpertStep(NamedTuple):
+    t: int           # time.perf_counter_ns() at booking, after the read-back
+    pairs: int       # routed pairs on held experts, every row and MoE layer
+    touched: int     # held experts that took a pair, summed over the layers
+    held: int        # held experts times MoE layers
+
+
+class ExpertSteps(_Ring):
+    """A bounded ring of :class:`ExpertStep`, oldest first, booked once a
+    decode step's counts are on the host; ``within(t0, t1)`` gives the
+    steps booked in [t0, t1], or None where the ring may have dropped
+    one."""
+
+    def book(self, pairs: int, touched: int, held: int) -> None:
+        # repro-lint: allow(wall-clock): host-clock record, observe-only
+        self._store(ExpertStep(perf_counter_ns(), pairs, touched, held))
+
+    within = _Ring._within
+
+
+#: the process's record of MoE decode steps, beside ``HOST_SPANS``
+EXPERT_STEPS = ExpertSteps()
 
 
 def to_profiler_ns(t: int) -> int:

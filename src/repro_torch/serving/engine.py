@@ -40,7 +40,7 @@ from repro_torch.dpu import DPUParams, DPUSidecar
 from repro_torch.kernels import ops
 from repro_torch.models import Model
 from repro_torch.models.model import CACHE_BATCH_AXIS
-from repro_torch.obs import HOST_SPANS, FlightRecorder, Tracer
+from repro_torch.obs import EXPERT_STEPS, HOST_SPANS, FlightRecorder, Tracer
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.scheduler import (
     Scheduler,
@@ -200,12 +200,20 @@ class InferenceEngine:
         self.slot_cache = model.init_cache(self.cfg.max_slots,
                                            self.cfg.max_seq,
                                            self.cfg.page_size)
-        # the decode step's fixed buffers: every slot's token in, its greedy
-        # next token out; the step writes the cache in place
-        self._tokens = torch.zeros((self.cfg.max_slots, 1), dtype=torch.int32,
+        # the decode step's fixed buffers: every slot's token in; out, one
+        # buffer the host reads back at once, its greedy next token and (an
+        # MoE model) each MoE layer's pair count per held expert, which the
+        # step writes through the cache's "expert_counts"; the step writes
+        # the cache in place
+        mc, slots = model.cfg, self.cfg.max_slots
+        self._tokens = torch.zeros((slots, 1), dtype=torch.int32,
                                    device=model.device)
-        self._next = torch.zeros((self.cfg.max_slots,), dtype=torch.int64,
-                                 device=model.device)
+        self._readout = torch.zeros((slots + mc.moe_layers * mc.n_held,),
+                                    dtype=torch.int64, device=model.device)
+        self._next = self._readout[:slots]
+        if mc.moe_layers:
+            self.slot_cache["expert_counts"] = self._readout[slots:].view(
+                mc.moe_layers, mc.n_held)
         # on the card: whether the first step (the capture) has run, and
         # the graph every later step replays
         self._captured = False
@@ -414,11 +422,17 @@ class InferenceEngine:
             self._emit(EventKind.D2H_XFER, device=0,
                        size=len(slots) * 4)
             self.stats["steps"] += 1
-            # the greedy tokens, taken on the device; one copy to the host
+            # the greedy tokens (and an MoE model's counts), taken on the
+            # device; one copy to the host
             wait = spans.open("step.wait", -1, node)
-            nxt = self._next.tolist()
+            host = self._readout.cpu()
             spans.close(wait)
-            self._record_tokens(slots, nxt)
+            n = self.cfg.max_slots
+            if host.numel() > n:
+                counts = host[n:].numpy()
+                EXPERT_STEPS.book(int(counts.sum()),
+                                  int(np.count_nonzero(counts)), counts.size)
+            self._record_tokens(slots, host[:n].tolist())
         finally:
             spans.close(span)
 

@@ -27,17 +27,33 @@ SHARED = sorted(p.relative_to(PORT).with_suffix("").as_posix()
                 .replace("/", ".") for p in PORT.rglob("*.py")
                 if (REF / p.relative_to(PORT)).is_file()
                 and p.name != "__main__.py")
-#: the one shared dataclass that is not a copy: the port's ``Model`` also
+#: the shared dataclasses that are not copies: the port's ``Model`` also
 #: holds its torch modules and their device, where the reference passes its
-#: params pytree apart.  The reference's fields come first, as they are.
-EXTENDED = {("models.model", "Model"): ("decoder", "device")}
+#: params pytree apart; the port's ``ModelConfig`` also describes its
+#: layer-pattern stack (nemotron_h), which the reference does not have.
+#: The reference's fields come first, as they are.
+EXTENDED = {("models.model", "Model"): ("decoder", "device"),
+            ("models.config", "ModelConfig"): (
+                "layer_pattern", "mamba_heads", "ssm_groups", "conv_kernel",
+                "gated_group_norm", "expert_act", "router", "routed_scale",
+                "shared_d_ff", "experts_held")}
 
 
 @pytest.mark.parametrize("arch", ARCH_MODULES)
 def test_arch_module_config_equals_the_reference(arch):
+    """The reference's fields equal; the port's own fields at their
+    defaults."""
     ref = importlib.import_module(f"repro.configs.{arch}").CONFIG
     port = importlib.import_module(f"repro_torch.configs.{arch}").CONFIG
-    assert plain(port) == plain(ref)
+    shared = [f.name for f in dataclasses.fields(ref)]
+    name, fields = plain(port)
+    assert (name, {k: v for k, v in fields.items() if k in shared}) \
+        == plain(ref)
+    extra = EXTENDED[("models.config", "ModelConfig")]
+    assert [f.name for f in dataclasses.fields(port)] == shared + list(extra)
+    for f in dataclasses.fields(port):
+        if f.name in extra:
+            assert getattr(port, f.name) == f.default, f.name
     from repro_torch.configs import ARCHS
     assert ARCHS[port.name] is port
 

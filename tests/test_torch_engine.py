@@ -225,6 +225,7 @@ class ForcedModel:
 
     def __init__(self, model, calls) -> None:
         self.model = model
+        self.cfg = model.cfg
         self.device = model.device
         self.calls = iter(calls)
         self.pairs = []     # (port logits, jax logits)

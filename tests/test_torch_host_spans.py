@@ -13,7 +13,9 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.obs import (  # noqa: E402
     HOST_SPANS,
+    ExpertSteps,
     HostSpans,
+    hostspans,
     to_profiler_ns,
 )
 from repro_torch.serving import EngineConfig, InferenceEngine  # noqa: E402
@@ -236,3 +238,18 @@ def test_spans_meet_record_function_on_the_profilers_clock():
     tol = 200_000                                   # 0.2 ms
     assert abs(statistics.median(starts)) < tol
     assert abs(statistics.median(ends)) < tol
+
+
+def test_the_expert_steps_ring_drops_the_oldest_alike(monkeypatch):
+    clock = iter(range(10, 100, 10))
+    monkeypatch.setattr(hostspans, "perf_counter_ns", lambda: next(clock))
+    record = ExpertSteps(capacity=2)
+    for i in range(3):
+        record.book(i, i, 4)
+    assert record.dropped == 1
+    assert [s.t for s in record._ring] == [20, 30]
+    # an interval reaching back to the oldest step kept may have held the
+    # dropped one: none rather than a part
+    assert record.within(0, 2**62) is None
+    assert record.within(20, 2**62) is None
+    assert [s.pairs for s in record.within(21, 2**62)] == [2]
