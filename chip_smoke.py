@@ -48,6 +48,11 @@ Phases, each printing one JSON line:
   families the same for the MoE and xLSTM families: qwen2-moe-a2.7b
            (full width, 6 of its 24 layers) serving 8 requests,
            xlstm-125m serving 8
+  prefills each benchmark configuration of BENCHMARK.json at full size
+           behind the engine its cells build, at each prefill bucket they
+           use: eager prefills, then the bucket's CUDA graph captured and
+           replayed, first token and cache row equal bit for bit; the
+           device operations and host times of one prefill each way
   control  the DPU closed loop of examples/serve_with_dpu_telemetry.py at
            full width: qwen3-0.6b (bf16, seeded weights) from static
            batching, telemetry over the modeled wire into the DPU sidecar,
@@ -933,6 +938,114 @@ def graph_case(torch, ops, arch: str, n_layers: int, steps: int = 16
             "replayed_ms_per_step": b["ms_per_step"]}
 
 
+def prefill_graph_case(torch, config: str, seed: int = 2147483901
+                       ) -> dict:
+    """One benchmark configuration (``bench/configs/<config>.json``) at
+    full size, its weights drawn as the benchmark draws them, behind the
+    engine its cells build (the one with the longest ``max_seq``), at each
+    prefill bucket its cells use: a prompt that fills the bucket prefilled
+    eagerly four times, then captured and replayed four times.  Each
+    replay's first token and the slot's cache row equal the eager ones bit
+    for bit.  Per bucket: the CUDA kernels, copies and sets one eager
+    prefill and one replay put on the device (``torch.profiler``), and
+    each way's median host time of ``prefill.enqueue`` and of the whole
+    prefill, which ends waiting for its first token; and the memory that
+    the engine's pool of prefill graphs holds."""
+    from bench.cell import build, buckets, load
+    from repro_torch.models.model import CACHE_BATCH_AXIS
+    from repro_torch.obs import HOST_SPANS
+    from repro_torch.serving import ServeRequest
+    from torch.profiler import ProfilerActivity, profile
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cells = [load(w["name"]) for w in spec["workloads"]
+             if w["config"] == config]
+    mix = max((c.mix for c in cells), key=lambda m: m["max_seq"])
+    device = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    model, eng = build(cells[0].config, mix, seed, device)
+    sizes = sorted({b for c in cells for b in buckets(
+        c.mix, eng.sched.cfg.prefill_buckets)})
+    capture = eng._capture_prefill
+    rng = random.Random(seed)
+
+    def prefill(rid: int, prompt: list) -> tuple[float, float]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        eng._prefill(0, ServeRequest(rid, 0.0, prompt, 4))
+        t1 = time.perf_counter_ns()
+        enq = [s for s in HOST_SPANS.within(t0, t1)
+               if s.name == "prefill.enqueue"]
+        return (enq[0].end - enq[0].start) * 1e-6, (t1 - t0) * 1e-6
+
+    def row() -> dict:
+        return {k: eng.slot_cache[k].select(a, 0).clone()
+                for k, a in CACHE_BATCH_AXIS.items() if k in eng.slot_cache}
+
+    def device_ops(rid: int, prompt: list) -> int:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prefill(rid, prompt)
+        return sum(e.count for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA"))
+
+    rows = []
+    for bucket in sizes:
+        prompt = [rng.randrange(model.cfg.vocab) for _ in range(bucket)]
+        eng._capture_prefill = None
+        eager = [prefill(i, prompt) for i in range(4)]
+        want_tok, want_row = eng._slot_next_token[0], row()
+        eager_ops = device_ops(4, prompt)
+        eng._capture_prefill = capture
+        prefill(5, prompt)                         # the capture
+        captured = eng._prefills.get(bucket) is not None
+        replayed, equal = [], True
+        for i in range(4):
+            replayed.append(prefill(6 + i, prompt))
+            got = row()
+            equal &= eng._slot_next_token[0] == want_tok and all(
+                torch.equal(got[k], want_row[k]) for k in got)
+        replay_ops = device_ops(10, prompt)
+
+        def median(runs, i):
+            return sorted(r[i] for r in runs)[len(runs) // 2]
+        rows.append({"bucket": bucket, "captured": captured,
+                     "bit_equal": equal,
+                     "eager_device_ops": eager_ops,
+                     "replay_device_ops": replay_ops,
+                     "eager_enqueue_ms": median(eager[1:], 0),
+                     "replay_enqueue_ms": median(replayed, 0),
+                     "eager_prefill_ms": median(eager[1:], 1),
+                     "replay_prefill_ms": median(replayed, 1)})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # what the engine's prefill graphs hold: the segments of their pool
+    pool = tuple(capture.keywords["pool"])
+    pool_gb = sum(seg["total_size"] for seg in
+                  torch.cuda.memory._snapshot()["segments"]
+                  if tuple(seg.get("segment_pool_id", ())) == pool) / 1e9
+    eng.slot_cache = None
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"config": config, "cells": [c.name for c in cells],
+            "max_seq": mix["max_seq"], "buckets": rows, "peak_gb": peak,
+            "prefill_pool_gb": pool_gb}
+
+
+def phase_prefills(torch) -> dict:
+    configs = json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]
+    cases = []
+    for c in configs:
+        cases.append(prefill_graph_case(torch, c["name"]))
+        emit({"prefill_case": cases[-1]})     # before the checks
+    for case in cases:
+        for row in case["buckets"]:
+            check(row["captured"], f"{case['config']}: bucket "
+                  f"{row['bucket']} was not captured (its prefill waited)")
+            check(row["bit_equal"], f"{case['config']}: a replayed prefill "
+                  f"of bucket {row['bucket']} differs from the eager one")
+    return {"cases": cases}
+
+
 def phase_path(torch, ops) -> dict:
     cases = [path_case(torch, ops, "qwen3-0.6b", 2),
              # one super-block (6 Mamba2 layers + the shared block) and a
@@ -1329,10 +1442,16 @@ def timed(fn, spent: dict, calls: dict, name: str):
 
 def checked(torch, fn, finite: list):
     """``fn``, appending one device flag per call to ``finite``: whether
-    its logits are all finite (read once, at the end of a run)."""
-    def inner(*args):
-        out = fn(*args)
-        finite.append(torch.isfinite(out[0]).all())
+    its logits are all finite (read once, at the end of a run).  On the
+    card the engine replays a bucket's prefill from a CUDA graph, which a
+    wrapper on ``Model.prefill`` sees only at the bucket's warm-up, whose
+    flag it takes, and capture, which runs nothing, so no flag is taken
+    there; a replay equals the eager prefill bit for bit (the
+    ``prefills`` phase)."""
+    def inner(*args, **kw):
+        out = fn(*args, **kw)
+        if not torch.cuda.is_current_stream_capturing():
+            finite.append(torch.isfinite(out[0]).all())
         return out
     return inner
 
@@ -1360,12 +1479,12 @@ def moe_step_weights(torch, cfg, step, tokens: list[int]) -> dict:
     chosen = []
     inner = moe.moe_fwd
 
-    def counting(p, cfg_, x, group_size=moe.MOE_GROUP):
+    def counting(p, cfg_, x, group_size=moe.MOE_GROUP, **kw):
         probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ p.router,
                               dim=-1)
         chosen.append(torch.topk(probs, cfg_.top_k, dim=-1).indices
                       .unique().numel())
-        return inner(p, cfg_, x, group_size)
+        return inner(p, cfg_, x, group_size, **kw)
 
     moe.moe_fwd = counting
     try:
@@ -2388,8 +2507,8 @@ def phase_dist(torch, ops, timer, kern: dict | None) -> dict:
                        "cells": cells}}
 
 
-PHASES = ("kernels", "path", "train", "serve", "families", "control",
-          "launch", "quickstart", "examples", "dist")
+PHASES = ("kernels", "path", "train", "serve", "families", "prefills",
+          "control", "launch", "quickstart", "examples", "dist")
 
 
 def main() -> int:
@@ -2460,6 +2579,11 @@ def main() -> int:
         families = phase_families(torch, ops)
         emit({"phase": "families", "gpu": smi,
               "seconds": time.perf_counter() - t0, **families})
+    if "prefills" in phases:
+        t0 = time.perf_counter()
+        pre = phase_prefills(torch)
+        emit({"phase": "prefills", "gpu": smi,
+              "seconds": time.perf_counter() - t0, **pre})
     if "control" in phases:
         t0 = time.perf_counter()
         control = phase_control(torch, ops)

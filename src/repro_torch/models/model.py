@@ -51,6 +51,18 @@ CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kpos": 0, "pos": 0, "ssm": 2,
                     "conv_state": 1,
                     **dict.fromkeys(MLSTM_STATE + SLSTM_STATE, 1)}
 
+# what a fresh cache holds, where it is not zero: no position yet in the
+# ring, the xLSTM stabilisers at -1e30
+CACHE_FILL = {"kpos": -1, "mlstm_m": -1e30, "slstm_m": -1e30}
+
+
+def reset_cache(cache: dict) -> None:
+    """Refill every tensor of ``cache`` in place with what a fresh cache
+    holds (``Model.init_cache``): no tensor is rebound or moved."""
+    for key, value in cache.items():
+        if isinstance(value, torch.Tensor):
+            value.fill_(CACHE_FILL.get(key, 0))
+
 
 def is_xlstm(cfg: ModelConfig) -> bool:
     return cfg.family == "ssm" and cfg.xlstm
@@ -227,10 +239,9 @@ class Model:
             dh = d // h
             shapes = dict(zip(MLSTM_STATE + SLSTM_STATE,
                               [(h, dh, dh), (h, dh), (h,)] + [(d,)] * 4))
-            cache = {name: torch.zeros(lead + shape, **f32)
+            cache = {name: torch.full(lead + shape, CACHE_FILL.get(name, 0),
+                                      **f32)
                      for name, shape in shapes.items()}
-            cache["mlstm_m"].fill_(-1e30)
-            cache["slstm_m"].fill_(-1e30)
             return {**cache, "pos": pos}
         if cfg.family == "hybrid":
             n_super, n_tail = divmod(cfg.n_layers, cfg.attn_every)
@@ -245,8 +256,8 @@ class Model:
         cache = {
             "k": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
             "v": torch.zeros(shape, dtype=dtype_of(cfg), device=dev),
-            "kpos": torch.full((batch, kv_len), -1, dtype=torch.int32,
-                               device=dev),
+            "kpos": torch.full((batch, kv_len), CACHE_FILL["kpos"],
+                               dtype=torch.int32, device=dev),
             "pos": pos,
             "page_size": page_size,
         }
@@ -274,11 +285,13 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache: dict,
-                frontend: torch.Tensor | None = None, shard=NOSHARD
-                ) -> tuple[torch.Tensor, dict]:
+                frontend: torch.Tensor | None = None, shard=NOSHARD,
+                fresh: bool | None = None) -> tuple[torch.Tensor, dict]:
         """Process the prompt, fill the cache, return last-position logits
-        (B, 1, V).  Reads back whether every row is at position 0 (one small
-        device-to-host copy): a fresh cache takes the flash kernel.  A
+        (B, 1, V).  ``fresh`` says whether every row is at position 0: a
+        fresh cache takes the flash kernel.  None reads it back from the
+        cache (one small device-to-host copy); a caller that made the cache
+        fresh says so, and the prefill then never waits for the device.  A
         hybrid's Mamba2 layers scan the prompt through the SSD kernel.
         ``frontend`` (B, F, d): an encoder-decoder's frame embeddings, which
         the encoder reads and whose output the cache keeps as ``enc_out``;
@@ -291,7 +304,8 @@ class Model:
             if frontend is not None:
                 frontend = self.input_tensor(frontend, shard)
             cache = self.place_cache(cache, shard)
-            fresh = _fresh(cache["pos"])
+            if fresh is None:
+                fresh = _fresh(cache["pos"])
             if cfg.family == "encdec":
                 if frontend is None:
                     raise ValueError(f"{cfg.name}: an encoder-decoder "

@@ -9,8 +9,14 @@ the host was doing while the device sat idle.  The names::
     request.queue    ``submit`` -> admission (request id; outside the nesting)
     engine.admit     the whole admission loop
       engine.prefill   one prefill (request id)
-        prefill.enqueue  ``Model.prefill``, its read-back of ``pos``
-        prefill.wait     the first token's copy to the host
+        prefill.enqueue  the prompt's copy to the device and the prefill
+                         issued: on the card one CUDA graph's replay (at a
+                         bucket's first prefill its eager warm-up and
+                         capture), elsewhere ``Model.prefill`` run eagerly
+          prefill.replay   the graph's replay alone
+        prefill.wait     the first token's copy to the host, which waits
+                         for the device to finish the prefill (and the
+                         slot's cache row copied from it)
     engine.step      the whole decode step
       step.enqueue     the tokens' copy to the device and the step issued:
                        on the card one CUDA graph's replay (at the first

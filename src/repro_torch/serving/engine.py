@@ -9,8 +9,10 @@ batching).  Prefill attention runs in the flash kernel, decode attention in
 the paged kernel, a hybrid's prefill scan in the SSD kernel (through
 ``Model``).  On the card an engine captures its decode step as one CUDA
 graph at its first step and replays it at every later one
-(``capture_step``); elsewhere the same step body (``decode_body``) runs
-eagerly.  Telemetry taps emit the exact event
+(``capture_step``), and likewise its prefill, one graph per prefill bucket
+captured at the bucket's first prefill; elsewhere the same bodies
+(``decode_body``, ``prefill_body``) run eagerly.  Telemetry taps emit the
+exact event
 schema the detectors consume: INGRESS on request arrival, H2D around
 prefill feeds, DISPATCH per step, D2H per step, EGRESS per token,
 QUEUE_SAMPLE per scheduler tick -- and the engine implements EngineControls
@@ -22,6 +24,7 @@ so the reports and event batches of the two engines are equal.
 
 from __future__ import annotations
 
+import functools
 import warnings
 from collections.abc import Callable, Iterable
 from dataclasses import dataclass
@@ -39,7 +42,7 @@ from repro_torch.core.telemetry import TelemetryPlane
 from repro_torch.dpu import DPUParams, DPUSidecar
 from repro_torch.kernels import ops
 from repro_torch.models import Model
-from repro_torch.models.model import CACHE_BATCH_AXIS
+from repro_torch.models.model import CACHE_BATCH_AXIS, reset_cache
 from repro_torch.obs import EXPERT_STEPS, HOST_SPANS, FlightRecorder, Tracer
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.scheduler import (
@@ -58,11 +61,34 @@ def decode_body(model: Model, tokens: torch.Tensor, cache: dict,
     (B, 1, V).  No tensor of ``cache`` is rebound or moved, so a CUDA graph
     of this body replays against the memory it was captured on."""
     logits, new = model.decode_step(tokens, cache)
+    _keep_positions(cache, new)
+    torch.argmax(logits[:, -1], dim=-1, out=next_tokens)
+    return logits
+
+
+def prefill_body(model: Model, tokens: torch.Tensor, cache: dict,
+                 first: torch.Tensor) -> torch.Tensor:
+    """One prompt's prefill, in place: ``cache`` (one row) reset to a fresh
+    cache's values (``reset_cache``), ``model.prefill`` of ``tokens``
+    (1, S) run from it as fresh (so nothing is read back), the new ``pos``
+    and ``kpos`` copied into ``cache``'s own tensors, and the greedy first
+    token written into ``first`` (1,) int64, which it returns.  Every
+    shape depends on S alone and no tensor of ``cache`` is rebound or
+    moved, so a CUDA graph of this body replays any prompt of S tokens."""
+    reset_cache(cache)
+    logits, new = model.prefill(tokens, cache, fresh=True)
+    _keep_positions(cache, new)
+    torch.argmax(logits[:, -1], dim=-1, out=first)
+    return first
+
+
+def _keep_positions(cache: dict, new: dict) -> None:
+    """The new ``pos`` and ``kpos`` (an xLSTM cache has no ``kpos``) copied
+    into ``cache``'s tensors; the stacks write every other entry in
+    place."""
     for key in ("pos", "kpos"):
         if key in cache:
             cache[key].copy_(new[key])
-    torch.argmax(logits[:, -1], dim=-1, out=next_tokens)
-    return logits
 
 
 class StepGraph:
@@ -111,15 +137,20 @@ def _synchronizes(fn: Callable[[], torch.Tensor]
                     for w in seen)
 
 
-def capture_step(body: Callable[[], torch.Tensor], device: torch.device
+def capture_step(body: Callable[[], torch.Tensor], device: torch.device,
+                 pool=None, stream: torch.cuda.Stream | None = None
                  ) -> tuple[torch.Tensor, StepGraph | None]:
-    """The first decode step on the card: ``body`` run once, eagerly, on a
-    side stream (a real step, and the warm-up: it allocates what a first
-    run allocates, such as that stream's cuBLAS workspace and the paged
-    kernel's counters), then captured on that stream.  Returns the step's
-    output and the graph, or None where the step waited for the device,
-    which a graph cannot capture: that step stays eager."""
-    stream = torch.cuda.Stream(device)
+    """The first run of a body on the card (the first decode step, or a
+    bucket's first prefill): ``body`` run once, eagerly, on a side stream
+    (a real run, and the warm-up: it allocates what a first run allocates,
+    such as that stream's cuBLAS workspace and the paged kernel's
+    counters), then captured on that stream, into the memory ``pool``
+    (``torch.cuda.graph_pool_handle()``; None: a pool of its own).  Graphs
+    that share a pool reuse each other's memory only if captured on one
+    ``stream``; None makes a new one.  Returns the run's output and the
+    graph, or None where the run waited for the device, which a graph
+    cannot capture: that body stays eager."""
+    stream = stream or torch.cuda.Stream(device)
     stream.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(stream):
         out, waited = _synchronizes(body)
@@ -127,7 +158,7 @@ def capture_step(body: Callable[[], torch.Tensor], device: torch.device
     if waited:
         return out, None
     graph = StepGraph(body, torch.cuda.CUDAGraph(),
-                      lambda g: torch.cuda.graph(g, stream=stream))
+                      lambda g: torch.cuda.graph(g, pool=pool, stream=stream))
     return out, graph
 
 
@@ -218,6 +249,28 @@ class InferenceEngine:
         # the graph every later step replays
         self._captured = False
         self._graph: StepGraph | None = None
+        # the prefill's fixed buffers: one row of cache, which each prefill
+        # fills from fresh and the admitted slot's row then copies; the
+        # prompt, left-padded into its bucket (a view of one buffer of the
+        # longest); the greedy first token
+        self._stage = model.init_cache(1, self.cfg.max_seq,
+                                       self.cfg.page_size)
+        self._prompt = torch.zeros(
+            (max(self.sched.cfg.prefill_buckets),), dtype=torch.int32,
+            device=model.device)
+        self._first = torch.zeros((1,), dtype=torch.int64,
+                                  device=model.device)
+        # on the card: each bucket's graph, captured at its first prefill
+        # (None: that prefill waited for the device, and the bucket stays
+        # eager); the graphs share one memory pool, which holds nothing but
+        # their scratch, and one capture stream, so that they reuse it
+        self._prefills: dict[int, StepGraph | None] = {}
+        self._capture_prefill = None
+        if model.device.type == "cuda":
+            self._capture_prefill = functools.partial(
+                capture_step, device=model.device,
+                pool=torch.cuda.graph_pool_handle(),
+                stream=torch.cuda.Stream(model.device))
         # the last decode step's logits (B, 1, V)
         self.step_logits: torch.Tensor | None = None
         self.clock = 0.0
@@ -329,28 +382,35 @@ class InferenceEngine:
         spans, node = HOST_SPANS, self.cfg.node
         span = spans.open("engine.prefill", req.req_id, node)
         bucket = self.sched.bucket_len(req.prompt_len)
-        toks = np.zeros((1, bucket), np.int32)
-        toks[0, -req.prompt_len:] = req.prompt    # left-pad into bucket
+        toks = np.zeros((bucket,), np.int32)
+        toks[-req.prompt_len:] = req.prompt    # left-pad into bucket
         # sizes count 4 bytes a token or logit, as the wire format does
         self._emit(EventKind.H2D_XFER, device=slot % 4,
                    size=int(toks.size * 4), flow=req.req_id)
-        fresh = self.model.init_cache(1, self.cfg.max_seq,
-                                      self.cfg.page_size)
         self._emit(EventKind.DISPATCH, device=slot % 4)
-        feed = torch.from_numpy(toks).to(self.model.device)
         enqueue = spans.open("prefill.enqueue", req.req_id, node)
-        logits, cache = self.model.prefill(feed, fresh)
+        self._prompt[:bucket].copy_(torch.from_numpy(toks))
+        graph = self._prefills.get(bucket)
+        if graph is not None:
+            replay = spans.open("prefill.replay", req.req_id, node)
+            graph.replay()
+            spans.close(replay)
+        elif bucket in self._prefills or self._capture_prefill is None:
+            self._prefill_body(bucket)
+        else:
+            _, self._prefills[bucket] = self._capture_prefill(
+                lambda: self._prefill_body(bucket))
         spans.close(enqueue)
         # first-token logits return to the host (pairs with the dispatch)
         self._emit(EventKind.D2H_XFER, device=slot % 4,
-                   size=int(logits.numel() * 4), flow=req.req_id)
+                   size=int(self.model.cfg.vocab * 4), flow=req.req_id)
         # write the slot's row of every batched cache tensor, in place
         for key, axis in CACHE_BATCH_AXIS.items():
-            if key in cache:
+            if key in self._stage:
                 self.slot_cache[key].select(axis, slot).copy_(
-                    cache[key].select(axis, 0))
+                    self._stage[key].select(axis, 0))
         wait = spans.open("prefill.wait", req.req_id, node)
-        nxt = int(torch.argmax(logits[0, -1]))
+        nxt = int(self._first)
         spans.close(wait)
         req.tokens_out = 0
         req.first_token = -1.0
@@ -439,6 +499,10 @@ class InferenceEngine:
     def _decode_body(self) -> torch.Tensor:
         return decode_body(self.model, self._tokens, self.slot_cache,
                            self._next)
+
+    def _prefill_body(self, bucket: int) -> torch.Tensor:
+        return prefill_body(self.model, self._prompt[:bucket].view(1, bucket),
+                            self._stage, self._first)
 
     def _record_tokens(self, slots: list[int], nxt: list[int]) -> None:
         """The step's bookkeeping: each running slot's token counted, the

@@ -239,10 +239,10 @@ class ForcedModel:
         assert tokens.shape == toks.shape
         return torch.from_numpy(np.array(toks)), want
 
-    def prefill(self, tokens, cache):
+    def prefill(self, tokens, cache, fresh=None):
         toks, want = self._next("prefill", tokens)
         np.testing.assert_array_equal(tokens.numpy(), toks.numpy())
-        logits, cache = self.model.prefill(tokens, cache)
+        logits, cache = self.model.prefill(tokens, cache, fresh=fresh)
         self.pairs.append((logits.reshape(1, -1).numpy(), want))
         return logits, cache
 

@@ -20,7 +20,7 @@ from repro_torch.obs import (  # noqa: E402
 )
 from repro_torch.serving import EngineConfig, InferenceEngine  # noqa: E402
 from repro_torch.serving import ServeRequest  # noqa: E402
-from torch_graphs import install  # noqa: E402
+from torch_graphs import capture_prefills, install  # noqa: E402
 
 NAMES = {"request.queue", "engine.admit", "engine.prefill",
          "prefill.enqueue", "prefill.wait", "engine.step", "step.enqueue",
@@ -29,7 +29,8 @@ PARENT = {"request.queue": None, "engine.admit": None, "engine.step": None,
           "engine.flush": None, "engine.prefill": "engine.admit",
           "prefill.enqueue": "engine.prefill",
           "prefill.wait": "engine.prefill", "step.enqueue": "engine.step",
-          "step.wait": "engine.step", "step.replay": "step.enqueue"}
+          "step.wait": "engine.step", "step.replay": "step.enqueue",
+          "prefill.replay": "prefill.enqueue"}
 
 
 @pytest.fixture(scope="module")
@@ -111,6 +112,28 @@ def test_a_replayed_step_opens_its_replay_inside_the_enqueue(model):
         assert [s.name for s in kids] == ["step.enqueue", "step.wait"]
 
 
+def test_a_replayed_prefill_opens_its_replay_inside_the_enqueue(model):
+    eng = _engine(model)
+    capture_prefills(eng)
+    t0 = time.perf_counter_ns()
+    eng.run(_requests() + [ServeRequest(20, 0.02, [4] * 70, 2)])
+    spans = HOST_SPANS.within(t0, time.perf_counter_ns())
+    by_index = {s.index: s for s in spans}
+    assert {s.name for s in spans} == NAMES | {"prefill.replay"}
+    replays = [s for s in spans if s.name == "prefill.replay"]
+    # two buckets (64, 128), each captured once and replayed after
+    assert len(replays) == sum(g.graph.replays
+                               for g in eng._prefills.values()) == 5
+    for s in replays:
+        up = by_index[s.parent]
+        assert up.name == PARENT[s.name] == "prefill.enqueue"
+        assert up.start <= s.start and s.end <= up.end and s.rid == up.rid
+    assert not {s.parent for s in spans} & {s.index for s in replays}
+    for p in (s for s in spans if s.name == "engine.prefill"):
+        kids = [s for s in spans if s.parent == p.index]
+        assert [s.name for s in kids] == ["prefill.enqueue", "prefill.wait"]
+
+
 def test_iterate_is_the_body_of_run(model):
     a, b = _engine(model), _engine(model)
     rep = a.run(_requests(), max_steps=40)
@@ -141,7 +164,7 @@ def test_a_raising_call_leaves_the_nesting_whole(model, call):
     eng = _engine(model)
     eng.run(_requests()[:1], max_steps=2)
 
-    def broken(*a):
+    def broken(*a, **kw):
         raise RuntimeError("device lost")
     setattr(eng.model, call, broken)
     try:
